@@ -1,0 +1,66 @@
+"""Model and eval configuration (port of estdepth_tpu/config.py).
+
+The JAX package picks its warp implementation with a backend probe
+(`resolve_warp_args`). Here the choice is a plain argument: the frustum
+warp mode is `ModelConfig.frustum_mode`, and the only mode this port
+implements is the eval tools' default, "plane_mix_exact_z". Both warps run
+their CUDA kernel on CUDA tensors and their plain PyTorch version on CPU
+tensors (ops/warp.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """DepthNetHybrid hyper-parameters (reference model_hybrid.py:15-16)."""
+
+    ndepths: int = 64
+    depth_min: float = 0.01
+    depth_max: float = 10.0
+    resnet: int = 50
+    est_transformer: bool = True
+    frustum_mode: str = "plane_mix_exact_z"
+
+    @property
+    def depth_interval(self) -> float:
+        return (self.depth_max - self.depth_min) / (self.ndepths - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """ESTM streaming protocol (eval_hybrid_seq.py:70)."""
+
+    height: int = 256
+    width: int = 320
+    lwindow: int = 3
+    memory_size: int = 2
+
+
+def tiny_config() -> tuple[ModelConfig, EvalConfig]:
+    """Small shapes for unit tests and CPU dry runs."""
+    return ModelConfig(ndepths=8), EvalConfig(height=64, width=96)
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA device; raise rather than run on the CPU when
+    there is none. Pass `device="cpu"` to run the plain PyTorch path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return dev
+
+
+def set_fp32_numerics() -> None:
+    """Full-fp32 matmuls and convolutions: TF32 keeps ~3 decimal digits,
+    and one-pass reduced precision measures ~1.15e-3 abs_rel against the
+    fp32 reference (PARITY.md), over the 1e-3 gate."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,105 @@
+"""Synthetic video-depth scenes with closed-form ground truth (the port's
+own numpy copy of estdepth_tpu/data/synthetic.py).
+
+A textured slanted plane rendered from a moving pinhole camera; depth is
+analytic, so the eval CLI and the smoke run work without a dataset and
+their output can be checked to the pixel. Host-side numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticSceneConfig:
+    height: int = 256
+    width: int = 320
+    # plane: n . X = offset, gently slanted
+    plane_normal: tuple = (0.15, -0.1, 1.0)
+    plane_offset: float = 2.5
+    # camera path: translation step per frame + small yaw
+    step_x: float = 0.08
+    step_z: float = 0.02
+    yaw_per_frame: float = 0.01
+    focal: float = 288.935303  # ScanNet fx/2 at 320-wide
+    seed: int = 0
+
+
+def intrinsics(cfg: SyntheticSceneConfig) -> np.ndarray:
+    return np.array(
+        [
+            [cfg.focal, 0.0, (cfg.width - 1) / 2.0],
+            [0.0, cfg.focal, (cfg.height - 1) / 2.0],
+            [0.0, 0.0, 1.0],
+        ],
+        dtype=np.float32,
+    )
+
+
+def pose(cfg: SyntheticSceneConfig, frame: int) -> np.ndarray:
+    """Cam-to-world pose [4, 4] of `frame`."""
+    yaw = cfg.yaw_per_frame * frame
+    c, s = np.cos(yaw), np.sin(yaw)
+    p = np.eye(4, dtype=np.float32)
+    p[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float32)
+    p[0, 3] = cfg.step_x * frame
+    p[2, 3] = cfg.step_z * frame
+    return p
+
+
+def render(cfg: SyntheticSceneConfig, cam_pose: np.ndarray):
+    """Returns (rgb [H, W, 3] in 0..255, depth [H, W] metric)."""
+    k = intrinsics(cfg)
+    h, w = cfg.height, cfg.width
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pix = np.stack(
+        [xx.ravel(), yy.ravel(), np.ones(h * w)], axis=0
+    ).astype(np.float64)
+    rays = np.linalg.inv(k) @ pix  # unit-z camera rays
+    n = np.asarray(cfg.plane_normal, dtype=np.float64)
+    r = cam_pose[:3, :3].astype(np.float64)
+    cpos = cam_pose[:3, 3].astype(np.float64)
+    dirs = r @ rays
+    denom = n @ dirs
+    t = (cfg.plane_offset - n @ cpos) / denom  # depth (rays are unit-z)
+    world = dirs * t + cpos[:, None]
+
+    phase = cfg.seed * 0.7
+    u, v = world[0], world[1]
+    rgb = np.stack(
+        [
+            0.5 + 0.5 * np.sin(3.1 * u + phase) * np.cos(2.3 * v),
+            0.5 + 0.5 * np.cos(1.7 * u - 1.1 * v + phase),
+            0.5 + 0.25 * np.sin(5.0 * u + 4.0 * v) + 0.25 * np.cos(0.9 * v),
+        ],
+        axis=-1,
+    )
+    rgb = (255.0 * np.clip(rgb, 0, 1)).astype(np.float32).reshape(h, w, 3)
+    depth = np.where(denom > 1e-6, t, 0.0).astype(np.float32).reshape(h, w)
+    return rgb, depth
+
+
+def synthetic_stream(
+    cfg: Optional[SyntheticSceneConfig] = None,
+    n_frames: int = 20,
+    depth_min: float = 0.01,
+    depth_max: float = 10.0,
+) -> Iterator[dict]:
+    """Per-frame stream for ESTM mode: img, cam_pose, cam_intr, dmap, dmask."""
+    cfg = cfg or SyntheticSceneConfig()
+    k = intrinsics(cfg)
+    for f in range(n_frames):
+        p = pose(cfg, f)
+        rgb, depth = render(cfg, p)
+        mask = (depth > depth_min) & (depth < depth_max) & np.isfinite(depth)
+        yield {
+            "img": rgb,
+            "cam_pose": p,
+            "cam_intr": k,
+            "dmap": depth,
+            "dmask": mask,
+        }

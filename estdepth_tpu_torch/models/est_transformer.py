@@ -1,0 +1,71 @@
+"""Epipolar spatio-temporal transformer: per-voxel attention over warped
+neighbour volumes + ConvGRU fusion (port of
+estdepth_tpu/models/est_transformer.py, its attention path at :70-86;
+reference epipolar_transformer.py:10-83).
+
+Inputs and output are channels-last like the JAX module; the GRU convs run
+NCDHW. Neighbours are a static leading axis with a validity mask: the
+softmax masks invalid neighbours, h = sum(attn * v) / n_valid, and with no
+neighbours at all h = 0 (the reference's zero-h fallback, :78-79).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+_NEG_INF = -1e9
+
+
+def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 4, 1, 2, 3)
+
+
+class EpipolarTransformer(nn.Module):
+    """channels: key/value channel count (reference base_channels // 2)."""
+
+    def __init__(self, channels: int = 16):
+        super().__init__()
+        c = channels
+        self.channels = c
+        self.gate_conv = nn.Conv3d(2 * c, 2 * c, 3, padding=1)
+        self.output_conv = nn.Conv3d(2 * c, c, 3, padding=1)
+        self.reset_gate_norm = nn.GroupNorm(1, c, eps=1e-5)
+        self.update_gate_norm = nn.GroupNorm(1, c, eps=1e-5)
+        self.output_norm = nn.GroupNorm(1, c, eps=1e-5)
+
+    def forward(
+        self,
+        target_key: torch.Tensor,      # [B, D, H, W, C]
+        target_value: torch.Tensor,    # [B, D, H, W, C]
+        warped_keys: torch.Tensor | None = None,    # [N, B, D, H, W, C]
+        warped_values: torch.Tensor | None = None,  # [N, B, D, H, W, C]
+        neighbor_valid: torch.Tensor | None = None,  # [N, B] bool
+    ) -> torch.Tensor:
+        c = self.channels
+        if warped_keys is not None and warped_keys.shape[0] > 0:
+            n, b = warped_keys.shape[:2]
+            if neighbor_valid is None:
+                neighbor_valid = torch.ones(n, b, dtype=torch.bool,
+                                            device=target_key.device)
+            corr = (target_key[None] * warped_keys).sum(-1)  # [N,B,D,H,W]
+            vmask = neighbor_valid[:, :, None, None, None]
+            logits = torch.where(vmask, corr.float(),
+                                 torch.full_like(corr, _NEG_INF))
+            attn = torch.softmax(logits, 0)
+            attn = torch.where(vmask, attn, torch.zeros_like(attn))
+            n_valid = neighbor_valid.float().sum(0)  # [B]
+            h = (warped_values * attn[..., None]).sum(0)
+            h = h / n_valid.clamp(min=1.0)[:, None, None, None, None]
+        else:
+            h = torch.zeros_like(target_value)
+
+        x = _to_ncdhw(target_value)
+        h = _to_ncdhw(h)
+        gates = self.gate_conv(torch.cat([x, h], 1))
+        r = torch.sigmoid(self.reset_gate_norm(gates[:, :c]))
+        u = torch.sigmoid(self.update_gate_norm(gates[:, c:]))
+        o = self.output_norm(self.output_conv(torch.cat([x, r * h], 1)))
+        y = torch.tanh(o)
+        out = u * h + (1.0 - u) * y
+        return out.permute(0, 2, 3, 4, 1)

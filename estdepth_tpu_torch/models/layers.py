@@ -1,0 +1,100 @@
+"""Conv/BN building blocks and the JAX package's init scheme (port of
+estdepth_tpu/models/layers.py).
+
+Modules here are NCHW / NCDHW. `conv_bn` is the reference's convbn
+(layers_op.py:10-39): an `nn.Sequential(conv, bn)` so that state_dict names
+are `<name>.0.weight` and `<name>.1.*`, the names
+estdepth_tpu/utils/convert.py:export_state_dict emits. The model is
+eval-only in this port: BatchNorm normalizes with its running statistics
+(eps 1e-5).
+
+The JAX package's TPU re-expressions of the 3D conv (Decomp3DConv,
+PackedConv3D, conv3d_as2d) bind the same parameters as a plain conv3d and
+compute the same function; the port uses `nn.Conv3d`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# flax's truncated-normal variance scaling divides the normal's stddev by
+# the stddev of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
+            pad: int | None = None, dilation: int = 1, dims: int = 2,
+            zero_bn_scale: bool = False, act: str | None = None
+            ) -> nn.Sequential:
+    """Conv(bias=False) + BatchNorm (+ ReLU or tanh).
+
+    The padding defaults to kernel // 2, and a dilation > 1 forces
+    pad = dilation (layers_op.py:12). `zero_bn_scale` starts the BN scale
+    at 0 so a residual branch starts as the identity."""
+    pad = kernel // 2 if pad is None else pad
+    if dilation > 1:
+        pad = dilation
+    conv_cls, bn_cls = ((nn.Conv2d, nn.BatchNorm2d) if dims == 2
+                        else (nn.Conv3d, nn.BatchNorm3d))
+    conv = conv_cls(cin, cout, kernel, stride, pad, dilation, bias=False)
+    conv.he_init = True
+    bn = bn_cls(cout, eps=1e-5)
+    bn.zero_init = zero_bn_scale
+    layers = [conv, bn]
+    if act == "relu":
+        layers.append(nn.ReLU(inplace=True))
+    elif act == "tanh":
+        layers.append(nn.Tanh())
+    elif act is not None:
+        raise ValueError(f"unknown activation {act!r}")
+    return nn.Sequential(*layers)
+
+
+def he_conv(conv: nn.Module) -> nn.Module:
+    """Mark a plain conv for the he-normal init of the JAX ConvBN kernels."""
+    conv.he_init = True
+    return conv
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's random init: conv kernels truncated-normal
+    he-normal (ConvBN) or lecun-normal (plain convs), biases 0; BatchNorm
+    scale 1 (0 under zero_bn_scale), bias 0, running mean 0 and var 1;
+    GroupNorm scale 1, bias 0. The numbers differ from JAX's (another
+    generator); the scheme is the same, which keeps a full-depth
+    random-weight forward finite."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+                fan_in = m.weight[0].numel()
+                scale = 2.0 if getattr(m, "he_init", False) else 1.0
+                std = math.sqrt(scale / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest x`factor` upsample of [N, C, H, W] (a repeat for an integer
+    factor, hybrid_depth_decoder.py:11-14)."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Half-pixel bilinear resize of [N, C, H, W] (align_corners=False),
+    torch-1.2 F.upsample(mode='bilinear') (psm_submodule.py:101-110)."""
+    return F.interpolate(x, size=(height, width), mode="bilinear",
+                         align_corners=False)

@@ -1,0 +1,152 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each `estdepth_tpu_torch/csrc/<name>.cu` exposes a plain C interface and is
+compiled on its own by
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
+
+into `build/kernels/` at the root of the checkout. The file name carries a
+hash of the source and flags, so an edited source is rebuilt and a stale
+library is never loaded. `build_all()` starts one nvcc per source at once.
+Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE.parent / "build" / "kernels"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of estdepth_tpu_torch need the CUDA toolkit to build"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process, temporary output, final path) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> list[str]:
+    """Compile every csrc/*.cu in parallel (one nvcc each); returns the
+    names built. Raises on the first failure after all have finished."""
+    jobs = {name: _start(name) for name in sources()}
+    errors = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            _finish(name, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [name for name, job in jobs.items() if job is not None]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+class Kernel:
+    """One C entry point of csrc/<source>.cu and its count of launches.
+
+    `argtypes` are set before the first call: without them ctypes passes a
+    pointer as a 32-bit int and cuts it. The entry point returns
+    cudaGetLastError() after its launch; a non-zero code raises.
+    `launches` grows by one for every launch that returned 0."""
+
+    def __init__(self, source: str, symbol: str, argtypes: list):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        status = self._fn(*args)
+        if status != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {status}")
+        self.launches += 1
+
+
+def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
+    """Raise unless t is a contiguous float32 tensor of `shape` on `device`:
+    the kernels take nothing else."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: {t.dtype}; the kernels take float32 only")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.requires_grad:
+        raise ValueError(f"{name}: requires grad; the kernels are "
+                         f"forward-only (run under torch.inference_mode())")

@@ -1,0 +1,51 @@
+"""Kernel 1: the plane-sweep sample, csrc/plane_sweep_warp.cu.
+
+Replaces estdepth_tpu/ops/pallas/plane_warp.py:plane_sweep_warp_pallas.
+On a CUDA tensor `plane_sweep_sample` launches the kernel; on a CPU tensor
+it runs the plain PyTorch version (ops/sampling.bilinear_sample).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.sampling import bilinear_sample
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = build.Kernel("plane_sweep_warp", "plane_sweep_warp_f32",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
+
+def plane_sweep_sample_plain(src: torch.Tensor, x: torch.Tensor,
+                             y: torch.Tensor) -> torch.Tensor:
+    """src [B, H, W, C] sampled at x, y [B, D*H*W] -> [B, D, H, W, C]."""
+    b, h, w, c = src.shape
+    return bilinear_sample(src, x, y).reshape(b, -1, h, w, c)
+
+
+def plane_sweep_sample(src: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """src [B, H, W, C] sampled at x, y [B, D*H*W] -> [B, D, H, W, C]:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if src.device.type == "cpu":
+        return plane_sweep_sample_plain(src, x, y)
+    if src.device.type != "cuda":
+        raise ValueError(f"plane_sweep_sample: unsupported device "
+                         f"{src.device}")
+    b, h, w, c = src.shape
+    if c % 4 or x.dim() != 2 or x.shape[1] % (h * w):
+        raise ValueError(f"plane_sweep_sample: src {tuple(src.shape)} "
+                         f"(C % 4 == 0) with x {tuple(x.shape)} "
+                         f"([B, D*H*W])")
+    d = x.shape[1] // (h * w)
+    build.require(src, "src", (b, h, w, c), src.device)
+    build.require(x, "x", (b, d * h * w), src.device)
+    build.require(y, "y", (b, d * h * w), src.device)
+    out = torch.empty((b, d, h, w, c), dtype=src.dtype, device=src.device)
+    with torch.cuda.device(src.device):  # the C entry launches there
+        KERNEL(src.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+               b, d, h, w, c, torch.cuda.current_stream().cuda_stream)
+    return out

@@ -1,0 +1,60 @@
+"""Kernel 2: the exact-z frustum resample, csrc/frustum_warp_exact_z.cu.
+
+Replaces estdepth_tpu/ops/pallas/plane_warp_exact_z.py:
+frustum_warp_exact_z_pallas. On a CUDA tensor `exact_z_resample` launches
+the kernel; on a CPU tensor it runs the plain PyTorch version
+(ops/warp_exact_z.resample_exact_z). The zi field is computed in PyTorch by
+the caller (ops/warp_exact_z.zi_field) and read by both.
+
+The TPU function's packed bf16 transport of (A, s) has no counterpart: the
+kernel keeps A and s in registers. A bf16 model is not ported yet, and the
+wrapper raises on bf16 volumes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = build.Kernel(
+    "frustum_warp_exact_z", "frustum_warp_exact_z_f32",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+)
+
+
+def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, z: torch.Tensor, depth_min: float,
+                     depth_interval: float) -> torch.Tensor:
+    """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y and depth z
+    [B, D*H*W] -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if volume.device.type == "cpu":
+        return resample_exact_z(volume, zi, x, y, z, depth_min,
+                                depth_interval)
+    if volume.device.type != "cuda":
+        raise ValueError(f"exact_z_resample: unsupported device "
+                         f"{volume.device}")
+    b, d, h, w, c = volume.shape
+    if c % 4 or d < 2:
+        raise ValueError(f"exact_z_resample: volume {tuple(volume.shape)} "
+                         f"needs C % 4 == 0 and D >= 2")
+    dev = volume.device
+    build.require(volume, "volume", (b, d, h, w, c), dev)
+    build.require(zi, "zi", (b, d, h * w), dev)
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        build.require(t, name, (b, d * h * w), dev)
+    out = torch.empty_like(volume)
+    # the f32 reciprocal PyTorch uses for a tensor / scalar on the card
+    inv_interval = float(np.float32(1.0) / np.float32(depth_interval))
+    with torch.cuda.device(dev):  # the C entry launches there
+        KERNEL(volume.data_ptr(), zi.data_ptr(), x.data_ptr(), y.data_ptr(),
+               z.data_ptr(), out.data_ptr(), b, d, h, w, c,
+               float(depth_min), inv_interval,
+               torch.cuda.current_stream().cuda_stream)
+    return out

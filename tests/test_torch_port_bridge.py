@@ -1,0 +1,136 @@
+"""The port's weight bridge, its import purity, and its device rules.
+
+  * state_dict_from_jax equals the JAX package's export_state_dict key for
+    key and value for value, and loads strictly into the port's model;
+  * no module of estdepth_tpu_torch, and not chip_smoke.py, imports jax,
+    flax or estdepth_tpu (an AST walk);
+  * entry points run on the CUDA device unless asked for the CPU: without
+    a GPU they raise, and the kernels neither build without nvcc nor fall
+    back to the plain version for a tensor that is not on the CPU.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from estdepth_tpu.models import DepthNetHybrid as JaxModel
+from estdepth_tpu.utils.convert import export_state_dict
+from estdepth_tpu_torch.config import ModelConfig, resolve_device, tiny_config
+from estdepth_tpu_torch.eval.estm import ESTMRunner
+from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+from estdepth_tpu_torch.ops.cuda import build, plane_warp, plane_warp_exact_z
+from estdepth_tpu_torch.utils.convert import state_dict_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "estdepth_tpu", "optax", "orbax")
+
+
+@pytest.mark.parametrize("resnet", [18, 50])
+def test_state_dict_from_jax_equals_export_and_loads(resnet):
+    model_cfg, eval_cfg = tiny_config()
+    jm = JaxModel(ndepths=model_cfg.ndepths, resnet=resnet)
+    h, w = eval_cfg.height, eval_cfg.width
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.key(0), jnp.zeros((1, 3, h, w, 3)),
+        jnp.tile(jnp.eye(4)[None, None], (1, 3, 1, 1)),
+        jnp.eye(3)[None], train=False))
+    rng = np.random.default_rng(0)
+    variables = jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+    want = export_state_dict(variables)
+    got = state_dict_from_jax(variables)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+    port = DepthNetHybrid(ModelConfig(ndepths=model_cfg.ndepths,
+                                      resnet=resnet))
+    port_keys = {k for k in port.state_dict()
+                 if not k.endswith("num_batches_tracked")}
+    assert port_keys == set(want)
+    port.load_state_dict(got, strict=True)
+    for k, v in port.state_dict().items():
+        if k in want:
+            np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "estdepth_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT).as_posix(), name)
+           for f in files for name in _imports(f)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = DepthNetHybrid(ModelConfig(ndepths=4, resnet=18))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ESTMRunner(model, 64, 96)
+    from estdepth_tpu_torch.tools.eval_estm import run_synthetic
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_synthetic(height=64, width=96, ndepths=4, resnet=18, n_frames=3)
+    assert ESTMRunner(model, 64, 96, device="cpu").device.type == "cpu"
+
+
+def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
+    """Off the CPU a wrapper launches its kernel or raises: tensors on
+    another device are refused, and the build raises without nvcc."""
+    meta = torch.empty(1, 4, 5, 4, device="meta")
+    coords = torch.empty(1, 2 * 4 * 5, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        plane_warp.plane_sweep_sample(meta, coords, coords)
+    with pytest.raises(ValueError, match="unsupported device"):
+        plane_warp_exact_z.exact_z_resample(
+            torch.empty(1, 2, 4, 5, 4, device="meta"),
+            torch.empty(1, 2, 20, device="meta"), coords, coords, coords,
+            0.5, 0.1)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME",
+                        str(ROOT / "no-such-toolkit"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+def test_wrapper_input_checks():
+    """The checks a wrapper runs before a launch, on CPU tensors."""
+    dev = torch.device("cpu")
+    ok = torch.zeros(2, 8)
+    build.require(ok, "x", (2, 8), dev)
+    with pytest.raises(TypeError):
+        build.require(ok.double(), "x", (2, 8), dev)
+    with pytest.raises(TypeError):
+        build.require(ok.bfloat16(), "x", (2, 8), dev)
+    with pytest.raises(ValueError, match="shape"):
+        build.require(ok, "x", (2, 4), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.require(ok.t(), "x", (8, 2), dev)
+    with pytest.raises(ValueError, match="requires grad"):
+        build.require(ok.clone().requires_grad_(), "x", (2, 8), dev)
