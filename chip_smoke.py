@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from estdepth_tpu_torch/csrc, holds each
-against its plain PyTorch version at the flagship ESTM shapes, checks the
-plane-sweep kernel against the analytic depth of a synthetic scene, and
-drives the ESTM streaming step (256x320, D = 64, ResNet-50, lwindow 3,
-memory 2, float32, random weights from a seed) through the kernels. Every
-phase prints one line; any failure raises and exits non-zero. The last
-line is {"ok": true, "device": {...}}.
+Builds the port's four CUDA kernels from estdepth_tpu_torch/csrc, holds
+each against its plain PyTorch version at the flagship shapes of the path
+that runs it, checks the plane-sweep kernel against the analytic depth of a
+synthetic scene, holds a small ESTM stream and a small Joint chain on the
+card against the plain path on the CPU, and drives both protocols at full
+width (256x320, D = 64, ResNet-50, float32, random weights from a seed)
+through the kernels: the ESTM streaming step (lwindow 3, memory 2) and the
+Joint window chain (5 frames in, 3 depth maps out, a 1-entry memory), the
+latter once with the default warp and once with the plane-mix warp and the
+attention kernel. Every phase prints one line; any failure raises and
+exits non-zero. The last line is {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when no CUDA device is present.
@@ -34,16 +38,26 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops import geometry, warp
-from estdepth_tpu_torch.ops.cuda import build, plane_warp, plane_warp_exact_z
+from estdepth_tpu_torch.ops.cuda import (
+    build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
+)
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
+from estdepth_tpu_torch.tools import eval_joint
 from estdepth_tpu_torch.tools.eval_estm import run_synthetic
 
-# Flagship ESTM shapes: 256x320 frames, cost volume 64x80, D = 64 planes,
-# 32 matching channels, 2 plane-sweep neighbours and 2 memory neighbours.
+# Flagship shapes: 256x320 frames, cost volume 64x80, D = 64 planes, 32
+# matching channels. ESTM step: 2 plane-sweep neighbours and 2 memory
+# neighbours. Joint window: 3 targets, each attending over 3 neighbours
+# (2 in-window, 1 memory) of 16 key + 16 value channels.
 HEIGHT, WIDTH, NDEPTHS, CHANNELS = 256, 320, 64, 32
 DEPTH_MIN, DEPTH_MAX = 0.01, 10.0
 REL_TOL = 1e-5  # max |kernel - plain| / max |plain|
-LWINDOW, MEMORY, FRAMES = 3, 2, 12
+LWINDOW, MEMORY, FRAMES = 3, 2, 8
+SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 3, 3
+KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
+           "frustum_warp_exact_z": plane_warp_exact_z.KERNEL,
+           "frustum_warp_plane_mix": plane_mix.KERNEL,
+           "epipolar_attention": epipolar_attention.KERNEL}
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -110,9 +124,9 @@ def phase_build() -> None:
 
 
 def _scene_geometry(dev):
-    """Poses of frames 0..2 of the synthetic scene and K at 1/4 res."""
+    """Poses of frames 0..3 of the synthetic scene and K at 1/4 res."""
     cfg = SyntheticSceneConfig(height=HEIGHT, width=WIDTH)
-    poses = torch.from_numpy(np.stack([pose(cfg, f) for f in range(3)]))
+    poses = torch.from_numpy(np.stack([pose(cfg, f) for f in range(4)]))
     k4 = geometry.scale_intrinsics(
         torch.from_numpy(intrinsics(cfg))[None], 0.25)
     dv = torch.linspace(DEPTH_MIN, DEPTH_MAX, NDEPTHS)[None]
@@ -139,7 +153,7 @@ def phase_kernels() -> list[dict]:
 
     # kernel 1: target frame 1 swept against neighbours 0 and 2
     src = torch.randn(2, h, w, c, generator=gen).to(dev)
-    proj = geometry.camera_projection(k4.expand(3, 3, 3), poses)
+    proj = geometry.camera_projection(k4.expand(3, 3, 3), poses[:3])
     x, y = warp.plane_sweep_coords(proj[[0, 2]], proj[[1, 1]],
                                    dv.expand(2, d), h, w)
     out_k = plane_warp.plane_sweep_sample(src, x, y)
@@ -189,6 +203,80 @@ def phase_kernels() -> list[dict]:
     row["bound_ms"], row["bound_by"] = bound_ms(
         nbytes(vol, zi, x, y, z, out_k), out_k.numel() * 32 + voxels * 30)
     row["valid_share"] = (out_p.abs().amax(-1) > 0).float().mean().item()
+    rows.append(row)
+    del vol, out_k, out_p
+
+    # kernel 3, Joint window: target frame 1 against in-window targets 0
+    # and 2 and the memory frame 3, keys and values concatenated
+    n = JOINT_NEIGHBOURS
+    vol = torch.randn(n, d, h, w, c, generator=gen).to(dev)
+    rel = torch.matmul(poses[[0, 2, 3]], torch.linalg.inv(poses[[1, 1, 1]]))
+    t, grid_px, x, y, _ = warp.frustum_coords(rel, k4.expand(n, 3, 3),
+                                             dv.expand(n, d), h, w)
+    zi = zi_field(t, k4.expand(n, 3, 3), dv.expand(n, d), DEPTH_MIN, dint,
+                  grid_px)
+
+    def kern():
+        return plane_mix.plane_mix_resample(vol, zi, x, y)
+
+    def plain():
+        return plane_mix.plane_mix_resample_plain(vol, zi, x, y)
+
+    warped, out_p = kern(), plain()
+    row = {"name": "frustum_warp_plane_mix", "route": "cuda",
+           "source": "estdepth_tpu_torch/csrc/frustum_warp_plane_mix.cu",
+           "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:533",
+           **_compare("frustum_warp_plane_mix", warped, out_p)}
+    row["ms"] = cuda_ms(kern)
+    row["plain_ms"] = cuda_ms(plain, reps=10)
+    row["library_ms"] = None
+    voxels = warped.numel() // c
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(vol, zi, x, y, warped), warped.numel() * 21 + voxels * 40)
+    row["valid_share"] = (out_p.abs().amax(-1) > 0).float().mean().item()
+    rows.append(row)
+    del vol, out_p
+
+    # kernel 4, Joint window: the target's key against the K and V halves
+    # of the volume kernel 3 just wrote, read in place as the fusion does
+    ck = c // 2
+    tk = torch.randn(1, d, h, w, ck, generator=gen).to(dev)
+    view = warped.reshape(1, n, d, h, w, c).transpose(0, 1)
+    wk, wv = view[..., :ck], view[..., ck:]
+    valid = torch.ones(n, 1, dtype=torch.bool, device=dev)
+
+    def kern():
+        return epipolar_attention.epipolar_attention(tk, wk, wv, valid)
+
+    def plain():
+        return epipolar_attention.epipolar_attention_plain(tk, wk, wv, valid)
+
+    out_k, out_p = kern(), plain()
+    row = {"name": "epipolar_attention", "route": "cuda",
+           "source": "estdepth_tpu_torch/csrc/epipolar_attention.cu",
+           "replaces": "estdepth_tpu/ops/pallas/epipolar_attention.py:100",
+           **_compare("epipolar_attention", out_k, out_p)}
+    # the tolerance the JAX package holds its TPU kernel to
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
+    row["ms"] = cuda_ms(kern)
+    row["plain_ms"] = cuda_ms(plain, reps=10)
+    # one library call for the same function with every neighbour valid:
+    # attention of 1 query over N keys per voxel, then the mean's 1 / N
+    voxels = d * h * w
+    # (voxels as 8 batches of heads: both stay under the 65535 grid limit)
+    q = tk.reshape(8, voxels // 8, 1, ck)
+    k_lib, v_lib = (m.permute(1, 2, 3, 4, 0, 5).reshape(8, voxels // 8, n, ck)
+                    for m in (wk, wv))
+
+    def library():
+        return F.scaled_dot_product_attention(q, k_lib, v_lib, scale=1.0) / n
+
+    lib_err = (library().reshape(out_p.shape) - out_p).abs().max().item()
+    if not lib_err < 1e-4:
+        raise AssertionError(f"library attention differs by {lib_err}")
+    row["library_ms"] = cuda_ms(library, reps=10)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(tk, out_k) + 2 * n * nbytes(tk), voxels * (n * 64 + n * 20))
     rows.append(row)
     for r in rows:
         log("kernel", **r)
@@ -269,19 +357,61 @@ def phase_reference() -> None:
         raise AssertionError(f"card vs CPU stream: max abs err {err}")
 
 
+def phase_reference_joint() -> None:
+    """A small Joint chain (ndepths 8, 64x96, ResNet-18, seq_length 5, 3
+    windows) with the plane-mix warp and the attention kernel on the card
+    against the plain PyTorch path on the CPU, same weights: all 4 depth
+    scales within the chain tolerance 8e-3."""
+    frames = _pitched_frames((JOINT_WINDOWS - 1) * (SEQ_LENGTH - 2)
+                             + SEQ_LENGTH)
+    imgs = np.stack([f["img"] for f in frames])[None]
+    poses = np.stack([f["cam_pose"] for f in frames])[None]
+    intr = frames[0]["cam_intr"][None]
+    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                      frustum_mode="plane_mix", use_fused_attention=True)
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        runner = eval_joint.JointRunner(DepthNetHybrid(cfg, seed=0),
+                                        device=dev)
+        outs[dev] = []
+        for wi in range(JOINT_WINDOWS):
+            sl = slice(wi * (SEQ_LENGTH - 2), wi * (SEQ_LENGTH - 2)
+                       + SEQ_LENGTH)
+            outs[dev].append(runner.run_window(
+                imgs[:, sl], poses[:, sl], intr)[0].cpu())
+    launched = {name: k.launches - counts[name]
+                for name, k in KERNELS.items()}
+    err = max((a - b).abs().max().item()
+              for a, b in zip(outs["cpu"], outs["cuda"]))
+    log("reference_joint", windows=len(outs["cuda"]), launches=launched,
+        max_abs_err=err, atol=8e-3)
+    if not (outs["cuda"][0].shape == (1, 3, 4, 64, 96) and err < 8e-3):
+        raise AssertionError(f"card vs CPU Joint chain: max abs err {err}")
+    if not (launched["frustum_warp_plane_mix"] == 6
+            and launched["epipolar_attention"] == 6):
+        raise AssertionError(f"small Joint chain launches {launched}")
+
+
+def _reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
 def phase_main_path(rows: list[dict]) -> None:
     """The ESTM streaming step at the flagship width through the kernels:
     every kernel's count is set to 0 just before and read just after."""
-    kernels = {"plane_sweep_warp": plane_warp.KERNEL,
-               "frustum_warp_exact_z": plane_warp_exact_z.KERNEL}
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _reset_counts()
     res = run_synthetic(HEIGHT, WIDTH, NDEPTHS, DEPTH_MIN, DEPTH_MAX,
                         resnet=50, lwindow=LWINDOW, memory_size=MEMORY,
                         scenes=1, n_frames=FRAMES, seed=0, device="cuda")
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = FRAMES - LWINDOW + 1
     maps = np.stack(res["maps"])
@@ -293,7 +423,8 @@ def phase_main_path(rows: list[dict]) -> None:
     # one plane-sweep launch per step; one frustum launch per EST step
     # (every step after the first window)
     if launches != {"plane_sweep_warp": steps,
-                    "frustum_warp_exact_z": steps - 1}:
+                    "frustum_warp_exact_z": steps - 1,
+                    "frustum_warp_plane_mix": 0, "epipolar_attention": 0}:
         raise AssertionError(f"kernel launches {launches}")
     steady = res["times"][2:]
     ms = 1e3 * statistics.median(steady)
@@ -303,7 +434,58 @@ def phase_main_path(rows: list[dict]) -> None:
         max_memory_allocated=peak, depth_range=[float(maps.min()),
                                                 float(maps.max())])
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {"estm": launches[row["name"]]}
+
+
+def phase_joint_path(rows: list[dict]) -> None:
+    """The Joint window chain at the flagship width through
+    tools.eval_joint.run_synthetic, 3 windows (11 frames): once with the
+    default warp (exact-z) and once with the plane-mix warp and the
+    attention kernel. Every kernel's count is set to 0 just before each
+    run and read just after."""
+    targets = SEQ_LENGTH - 2
+    est_windows = JOINT_WINDOWS - 1  # the first window runs without EST
+    # sequential fusion: one frustum warp (and attention call) per target
+    fused = est_windows * targets
+    runs = {
+        "joint": (dict(), {"plane_sweep_warp": JOINT_WINDOWS,
+                           "frustum_warp_exact_z": fused,
+                           "frustum_warp_plane_mix": 0,
+                           "epipolar_attention": 0}),
+        "joint_plane_mix_fused_attention": (
+            dict(frustum_mode="plane_mix", fused_attention=True),
+            {"plane_sweep_warp": JOINT_WINDOWS, "frustum_warp_exact_z": 0,
+             "frustum_warp_plane_mix": fused, "epipolar_attention": fused}),
+    }
+    for path, (options, expected) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = eval_joint.run_synthetic(
+            HEIGHT, WIDTH, NDEPTHS, DEPTH_MIN, DEPTH_MAX, resnet=50,
+            seq_length=SEQ_LENGTH, windows=JOINT_WINDOWS, seed=0,
+            device="cuda", **options)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        maps = res["maps"]
+        if maps.shape != (JOINT_WINDOWS, targets, 2, HEIGHT, WIDTH):
+            raise AssertionError(f"{path}: outputs {maps.shape}")
+        if not (np.isfinite(maps).all() and maps.min() >= 0
+                and maps.max() <= DEPTH_MAX):
+            raise AssertionError(f"{path}: depths not finite or outside "
+                                 f"[0, depth_max]")
+        if launches != expected:
+            raise AssertionError(f"{path}: kernel launches {launches}, "
+                                 f"expected {expected}")
+        ms = 1e3 * statistics.median(res["times"][1:])  # the EST windows
+        log("joint_path", path=path, windows=JOINT_WINDOWS,
+            targets_per_window=targets, launches=launches, ms_per_window=ms,
+            targets_per_s=targets * 1e3 / ms,
+            times_ms=[1e3 * t for t in res["times"]],
+            max_memory_allocated=peak,
+            depth_range=[float(maps.min()), float(maps.max())])
+        for row in rows:
+            row["launches_by_path"][path] = launches[row["name"]]
 
 
 def main() -> None:
@@ -312,7 +494,14 @@ def main() -> None:
     rows = phase_kernels()
     phase_geometry()
     phase_reference()
+    phase_reference_joint()
     phase_main_path(rows)
+    phase_joint_path(rows)
+    for row in rows:  # every kernel ran on a main path
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']}: never launched on a main "
+                                 f"path")
     print(json.dumps({"kernels": rows}))
     print(dev_info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """estdepth_tpu_torch — the PyTorch/CUDA port of estdepth_tpu for NVIDIA Hopper.
 
-The ESTM streaming eval step of the JAX package, rebuilt on PyTorch with
-hand-written CUDA kernels for its two hot warps (ops/cuda/, csrc/). It
+The eval protocols of the JAX package (ESTM streaming, Joint windows, the
+offline whole-scene processors), rebuilt on PyTorch with hand-written CUDA
+kernels for the plane-sweep warp, the exact-z and plane-mix frustum warps
+and the epipolar attention (ops/cuda/, csrc/). It
 imports nothing of JAX or of `estdepth_tpu`; the JAX package is the
 numerical reference the tests hold it against.
 

@@ -2,14 +2,15 @@
 
 The JAX package picks its warp implementation with a backend probe
 (`resolve_warp_args`). Here the choice is a plain argument: the frustum
-warp mode is `ModelConfig.frustum_mode`, and the only mode this port
-implements is the eval tools' default, "plane_mix_exact_z". Both warps run
-their CUDA kernel on CUDA tensors and their plain PyTorch version on CPU
-tensors (ops/warp.py).
+warp mode is `ModelConfig.frustum_mode`, one of "exact", "plane_mix" and
+the eval tools' default "plane_mix_exact_z" (`resolve_frustum_mode` maps
+the tools' flags to it). The kernel-backed warps run their CUDA kernel on
+CUDA tensors and their plain PyTorch version on CPU tensors (ops/warp.py).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 
 import torch
@@ -25,6 +26,11 @@ class ModelConfig:
     resnet: int = 50
     est_transformer: bool = True
     frustum_mode: str = "plane_mix_exact_z"
+    # targets fused in the reference's order, each seeing the already fused
+    # values of earlier targets; False fuses all targets in one batch
+    sequential_fusion: bool = True
+    # EST attention through the CUDA kernel (ops/cuda/epipolar_attention.py)
+    use_fused_attention: bool = False
 
     @property
     def depth_interval(self) -> float:
@@ -44,6 +50,29 @@ class EvalConfig:
 def tiny_config() -> tuple[ModelConfig, EvalConfig]:
     """Small shapes for unit tests and CPU dry runs."""
     return ModelConfig(ndepths=8), EvalConfig(height=64, width=96)
+
+
+def resolve_frustum_mode(exact_warp: bool = False,
+                         exact_z: bool = True) -> str:
+    """The eval tools' warp flags as a `frustum_mode` (counterpart of the
+    JAX package's `resolve_warp_args`, without its backend probe): the
+    default is the exact-z plane-mix warp, `--no-exact-z` the plain
+    plane-mix warp, and `--exact-warp` the reference's trilinear warp."""
+    if exact_warp:
+        return "exact"
+    return "plane_mix_exact_z" if exact_z else "plane_mix"
+
+
+def add_model_flags(parser) -> None:
+    """The warp and attention flags shared by the eval tools."""
+    parser.add_argument("--exact-warp", action="store_true",
+                        help="the reference's trilinear frustum warp")
+    parser.add_argument("--exact-z", default=True,
+                        action=argparse.BooleanOptionalAction,
+                        help="exact-z correction on the plane-mix warp "
+                             "(default on; --no-exact-z: plain plane-mix)")
+    parser.add_argument("--fused-attention", action="store_true",
+                        help="EST attention through its CUDA kernel")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -83,6 +83,36 @@ def render(cfg: SyntheticSceneConfig, cam_pose: np.ndarray):
     return rgb, depth
 
 
+def synthetic_window(
+    cfg: Optional[SyntheticSceneConfig] = None,
+    n_frames: int = 5,
+    start_frame: int = 0,
+    depth_min: float = 0.01,
+    depth_max: float = 10.0,
+    batch: int = 1,
+) -> dict:
+    """A window in the model's input format: imgs [B, V, H, W, 3] (0..255),
+    cam_poses [B, V, 4, 4] cam-to-world, cam_intr [B, 3, 3], dmaps and
+    dmasks [B, T, H, W] of the T = V-2 target frames 1..V-2
+    (model_hybrid.py:152-164)."""
+    cfg = cfg or SyntheticSceneConfig()
+    poses = [pose(cfg, f) for f in range(start_frame, start_frame + n_frames)]
+    rendered = [render(cfg, p) for p in poses]
+    dmaps = np.stack([d for _, d in rendered])[None, 1:n_frames - 1]
+    out = {
+        "imgs": np.stack([rgb for rgb, _ in rendered])[None].astype(
+            np.float32),
+        "cam_poses": np.stack(poses)[None].astype(np.float32),
+        "cam_intr": intrinsics(cfg)[None],
+        "dmaps": dmaps.astype(np.float32),
+        "dmasks": ((dmaps > depth_min) & (dmaps < depth_max)
+                   & np.isfinite(dmaps)),
+    }
+    if batch > 1:
+        out = {k: np.repeat(v, batch, axis=0) for k, v in out.items()}
+    return out
+
+
 def synthetic_stream(
     cfg: Optional[SyntheticSceneConfig] = None,
     n_frames: int = 20,

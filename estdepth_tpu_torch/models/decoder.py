@@ -7,7 +7,9 @@ key/value volumes are warped channels-last [B, D, H, W, C] and the ESTM
 memory holds [B, M, D, H, W, C]. The softargmin is taken at cost-volume
 resolution and the depth map nearest-upsampled x4 (identical to the
 reference's upsample-logits-then-softargmin, since depth hypotheses are
-spatially constant). Only the default sequential fusion is ported.
+spatially constant). The EST fusion is sequential by default (the
+reference's order); `sequential_fusion=False` fuses all targets in one
+batched warp and one attention call.
 """
 
 from __future__ import annotations
@@ -60,11 +62,14 @@ def _head_logits(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
 class DepthHybridDecoder(nn.Module):
     def __init__(self, num_ch_enc, ndepths: int = 64, depth_max: float = 10.0,
                  est_transformer: bool = True, base_channels: int = 32,
-                 frustum_mode: str = "plane_mix_exact_z"):
+                 frustum_mode: str = "plane_mix_exact_z",
+                 sequential_fusion: bool = True,
+                 use_fused_attention: bool = False):
         super().__init__()
         self.ndepths = ndepths
         self.depth_max = depth_max
         self.frustum_mode = frustum_mode
+        self.sequential_fusion = sequential_fusion
         enc = num_ch_enc
         nd = ndepths
         self.upconv_4_0 = ConvBlock(enc[4], 256)
@@ -90,8 +95,10 @@ class DepthHybridDecoder(nn.Module):
         self.value_layer = conv_bn_relu_3d(bc + 1, bc // 2, act="tanh")
         self.stereo_head0 = stereo_head(bc // 2)
         self.stereo_head1 = stereo_head(bc // 2)
-        self.epipolar_transformer = (EpipolarTransformer(bc // 2)
-                                     if est_transformer else None)
+        self.epipolar_transformer = (
+            EpipolarTransformer(bc // 2,
+                                use_fused_attention=use_fused_attention)
+            if est_transformer else None)
 
     def _semantic_unet(self, feats):
         """Scales 4 -> 2 of the U-Net (decoder :163-184): semantic_vs
@@ -102,6 +109,51 @@ class DepthHybridDecoder(nn.Module):
         x = self.upconv_3_1(torch.cat([upsample_nearest(x), feats[2]], 1))
         x = self.upconv_2_0(x)
         return self.upconv_2_1(torch.cat([upsample_nearest(x), feats[1]], 1))
+
+    def _est_fusion(self, key, value, target_poses, cam_intr, depth_values,
+                    depth_min, depth_interval, memory: ESTMemory | None):
+        """Every neighbour (in-window + memory) warped into each target's
+        frustum in one folded warp, then one attention + GRU call over all
+        targets, each attending over the UNFUSED values of its neighbours
+        (the double loop at hybrid_depth_decoder.py:229-253, batched).
+        key/value [B, num, D, H, W, C] channels-last; returns the fused
+        values in the same layout."""
+        b, num, d, h, w, c = key.shape
+        est = self.epipolar_transformer
+        window_valid = torch.ones(b, num, dtype=torch.bool, device=key.device)
+        if memory is not None and memory.size > 0:
+            all_keys = torch.cat([key, memory.keys.to(key.dtype)], 1)
+            all_vals = torch.cat([value, memory.values.to(value.dtype)], 1)
+            all_poses = torch.cat([target_poses, memory.poses], 1)
+            all_valid = torch.cat([window_valid, memory.valid], 1)
+        else:
+            all_keys, all_vals = key, value
+            all_poses, all_valid = target_poses, window_valid
+
+        s = all_keys.shape[1]
+        nn_ = s - 1
+        if nn_ == 0:  # single target, no memory: the zero-h GRU fallback
+            return est(key[:, 0], value[:, 0])[:, None]
+        idx_i = [i for i in range(num) for j in range(s) if j != i]
+        idx_j = [j for i in range(num) for j in range(s) if j != i]
+        p = len(idx_i)
+        rel = torch.matmul(all_poses[:, idx_j],
+                           torch.linalg.inv(target_poses[:, idx_i]))
+        kv = torch.cat([all_keys[:, idx_j], all_vals[:, idx_j]], -1)
+        warped = frustum_warp(
+            kv.reshape(b * p, d, h, w, 2 * c), rel.reshape(b * p, 4, 4),
+            cam_intr[:, None].expand(b, p, 3, 3).reshape(b * p, 3, 3),
+            depth_values[:, None].expand(b, p, d).reshape(b * p, d),
+            depth_min, depth_interval, mode=self.frustum_mode,
+        )
+        # neighbour-leading, targets folded into the batch:
+        # [NN, B*num, D, H, W, 2C], a view of the warp's output
+        warped = warped.reshape(b * num, nn_, d, h, w, 2 * c).transpose(0, 1)
+        valid = all_valid[:, idx_j].reshape(b * num, nn_).t()
+        fused = est(key.reshape(b * num, d, h, w, c),
+                    value.reshape(b * num, d, h, w, c),
+                    warped[..., :c], warped[..., c:], valid)
+        return fused.reshape(b, num, d, h, w, c)
 
     def _est_fusion_sequential(self, key, value, target_poses, cam_intr,
                                depth_values, depth_min, depth_interval,
@@ -183,10 +235,15 @@ class DepthHybridDecoder(nn.Module):
         init_logits = _head_logits(self.stereo_head0, value)
         depth3, prob3 = softargmin_depth(init_logits, dv_bn)
 
-        key_w = key.permute(0, 2, 3, 4, 1).reshape(b, num, d, h, w, -1)
+        # keys channels-last in memory, not as a view of the conv's NCDHW
+        # output: the attention kernel reads a voxel's channels as one row
+        key_w = key.permute(0, 2, 3, 4, 1).contiguous().reshape(
+            b, num, d, h, w, -1)
         value_w = value.permute(0, 2, 3, 4, 1).reshape(b, num, d, h, w, -1)
         if use_est:
-            fused = self._est_fusion_sequential(
+            fusion = (self._est_fusion_sequential if self.sequential_fusion
+                      else self._est_fusion)
+            fused = fusion(
                 key_w, value_w, target_poses, cam_intr, depth_values,
                 depth_min, depth_interval, memory)  # [B, num, D, H, W, C]
             fused_logits = _head_logits(

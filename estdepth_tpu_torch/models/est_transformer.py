@@ -7,6 +7,11 @@ Inputs and output are channels-last like the JAX module; the GRU convs run
 NCDHW. Neighbours are a static leading axis with a validity mask: the
 softmax masks invalid neighbours, h = sum(attn * v) / n_valid, and with no
 neighbours at all h = 0 (the reference's zero-h fallback, :78-79).
+
+The attention stage is ops/cuda/epipolar_attention: its plain PyTorch
+version by default, and with `use_fused_attention` (the counterpart of the
+JAX module's `use_pallas`) the wrapper that launches the CUDA kernel on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-_NEG_INF = -1e9
+from estdepth_tpu_torch.ops.cuda.epipolar_attention import (
+    epipolar_attention, epipolar_attention_plain,
+)
 
 
 def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -22,12 +29,14 @@ def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
 
 
 class EpipolarTransformer(nn.Module):
-    """channels: key/value channel count (reference base_channels // 2)."""
+    """channels: key/value channel count (reference base_channels // 2).
+    use_fused_attention: run the attention stage through kernel 4."""
 
-    def __init__(self, channels: int = 16):
+    def __init__(self, channels: int = 16, use_fused_attention: bool = False):
         super().__init__()
         c = channels
         self.channels = c
+        self.use_fused_attention = use_fused_attention
         self.gate_conv = nn.Conv3d(2 * c, 2 * c, 3, padding=1)
         self.output_conv = nn.Conv3d(2 * c, c, 3, padding=1)
         self.reset_gate_norm = nn.GroupNorm(1, c, eps=1e-5)
@@ -48,15 +57,10 @@ class EpipolarTransformer(nn.Module):
             if neighbor_valid is None:
                 neighbor_valid = torch.ones(n, b, dtype=torch.bool,
                                             device=target_key.device)
-            corr = (target_key[None] * warped_keys).sum(-1)  # [N,B,D,H,W]
-            vmask = neighbor_valid[:, :, None, None, None]
-            logits = torch.where(vmask, corr.float(),
-                                 torch.full_like(corr, _NEG_INF))
-            attn = torch.softmax(logits, 0)
-            attn = torch.where(vmask, attn, torch.zeros_like(attn))
-            n_valid = neighbor_valid.float().sum(0)  # [B]
-            h = (warped_values * attn[..., None]).sum(0)
-            h = h / n_valid.clamp(min=1.0)[:, None, None, None, None]
+            attend = (epipolar_attention if self.use_fused_attention
+                      else epipolar_attention_plain)
+            h = attend(target_key, warped_keys, warped_values,
+                       neighbor_valid)
         else:
             h = torch.zeros_like(target_value)
 

@@ -47,6 +47,8 @@ class DepthNetHybrid(nn.Module):
             self.semanticFeature.num_ch_enc, ndepths=cfg.ndepths,
             depth_max=cfg.depth_max, est_transformer=cfg.est_transformer,
             frustum_mode=cfg.frustum_mode,
+            sequential_fusion=cfg.sequential_fusion,
+            use_fused_attention=cfg.use_fused_attention,
         )
         # cost-volume pair aggregation (model_hybrid.py:58-60)
         self.pre0 = conv_bn(64, 32, 1, 1, pad=0, dims=3)

@@ -135,9 +135,8 @@ class Kernel:
         self.launches += 1
 
 
-def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
-    """Raise unless t is a contiguous float32 tensor of `shape` on `device`:
-    the kernels take nothing else."""
+def _require_basics(t: torch.Tensor, name: str, shape,
+                    device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -145,8 +144,49 @@ def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
     if t.requires_grad:
         raise ValueError(f"{name}: requires grad; the kernels are "
                          f"forward-only (run under torch.inference_mode())")
+
+
+def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
+    """Raise unless t is a contiguous float32 tensor of `shape` on `device`:
+    the kernels take nothing else."""
+    _require_basics(t, name, shape, device)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def require_voxel_rows(t: torch.Tensor, name: str, shape,
+                       device: torch.device) -> tuple[list[int], int]:
+    """The strided form of `require`, for a float32 view
+    [*lead, D, H, W, C] whose voxels are rows of C adjacent floats at one
+    pitch: the channel stride is 1 and (D, H, W) collapse to a voxel index
+    with stride `pitch` >= C, as in a channel slice of a wider contiguous
+    volume. The leading dims may have any stride. Rows must be 16-byte
+    aligned for the kernels' float4 loads. Returns (leading strides,
+    pitch) in elements, or raises."""
+    _require_basics(t, name, shape, device)
+    *lead, d, h, w, c = shape
+    strides = t.stride()
+    if c > 1 and strides[-1] != 1:
+        raise ValueError(f"{name}: channel stride {strides[-1]}, the "
+                         f"kernel reads a voxel's channels as adjacent "
+                         f"floats")
+    pitch = None
+    for size, stride, per in zip((d, h, w), strides[-4:-1], (h * w, w, 1)):
+        if size == 1:
+            continue
+        if stride % per or (pitch is not None and stride // per != pitch):
+            raise ValueError(f"{name}: strides {tuple(strides)} do not "
+                             f"address (D, H, W) as one voxel index")
+        pitch = stride // per
+    pitch = c if pitch is None else pitch
+    lead_strides = [0 if n == 1 else s
+                    for n, s in zip(lead, strides[:len(lead)])]
+    if pitch < c or any(s % 4 for s in (pitch, *lead_strides)) or (
+            t.data_ptr() % 16):
+        raise ValueError(f"{name}: rows of {c} floats at pitch {pitch}, "
+                         f"strides {tuple(strides)}: not 16-byte aligned "
+                         f"rows")
+    return lead_strides, pitch

@@ -1,10 +1,11 @@
-"""Bilinear sampling with hard out-of-range zeroing (port of
-estdepth_tpu/ops/sampling.py:bilinear_sample_stacked).
+"""Bilinear and trilinear sampling with hard out-of-range zeroing (port of
+estdepth_tpu/ops/sampling.py:bilinear_sample_stacked and
+trilinear_sample_stacked).
 
 A sample point is valid iff x in [0, W-1] and y in [0, H-1]
 (align_corners=True pixel coordinates); valid points are interpolated from
 in-bounds corners, invalid points are exactly zero (homo_utils.py:484-501).
-The corner rules are the JAX stacked sampler's, which both CUDA kernels
+The corner rules are the JAX stacked samplers', which the CUDA kernels
 reproduce: clip the coordinate to [0, size-1], the base index to
 [0, size-2], take the fraction against the clipped coordinate, and zero
 by the UNCLIPPED coordinate.
@@ -49,4 +50,41 @@ def bilinear_sample(src: torch.Tensor, x: torch.Tensor,
     top = v00 + wx * (v01 - v00)
     bot = v10 + wx * (v11 - v10)
     out = top + wy * (bot - top)
+    return out * valid[..., None].to(src.dtype)
+
+
+def trilinear_sample(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     z: torch.Tensor) -> torch.Tensor:
+    """Sample src [B, D, H, W, C] at voxel coords x, y, z [B, N]
+    -> [B, N, C]; zero unless x in [0, W-1], y in [0, H-1], z in [0, D-1].
+    The x lerp is innermost, then y, then z, as in the stacked sampler."""
+    b, d, h, w, c = src.shape
+    x, y, z = x.float(), y.float(), z.float()
+    valid = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+             & (z >= 0) & (z <= d - 1))
+    x0, wx = corner(x, w)
+    y0, wy = corner(y, h)
+    z0, wz = corner(z, d)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    z1 = (z0 + 1).clamp(max=d - 1)
+    flat = src.reshape(b, d * h * w, c)
+
+    def gather(iz, iy, ix):
+        idx = ((iz * h + iy) * w + ix)[..., None].expand(-1, -1, c)
+        return torch.gather(flat, 1, idx)
+
+    wx = wx[..., None].to(src.dtype)
+    wy = wy[..., None].to(src.dtype)
+    wz = wz[..., None].to(src.dtype)
+
+    def plane(iz):
+        v00, v01 = gather(iz, y0, x0), gather(iz, y0, x1)
+        v10, v11 = gather(iz, y1, x0), gather(iz, y1, x1)
+        top = v00 + wx * (v01 - v00)
+        bot = v10 + wx * (v11 - v10)
+        return top + wy * (bot - top)
+
+    front, back = plane(z0), plane(z1)
+    out = front + wz * (back - front)
     return out * valid[..., None].to(src.dtype)

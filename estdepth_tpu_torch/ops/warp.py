@@ -3,11 +3,16 @@ estdepth_tpu/ops/warp.py).
 
   * plane_sweep_warp <-> homo_warping (reference homo_utils.py:458-504)
   * frustum_warp     <-> warp_volume  (reference homo_utils.py:240-279),
-    in the "plane_mix_exact_z" formulation (ops/warp_exact_z.py)
+    in three formulations named as in the JAX package: "exact" (one
+    trilinear sample per voxel), "plane_mix" (z-mix per source pixel, then
+    a bilinear sample per voxel) and "plane_mix_exact_z" (plane_mix with
+    the slope-carry correction, ops/warp_exact_z.py)
 
-The coordinate math is PyTorch; the sampling goes through the kernel
-wrappers in ops/cuda/, which launch the CUDA kernels on CUDA tensors and
-run their plain versions on CPU tensors.
+The coordinate math is PyTorch. The plane-sweep sample and the two
+plane_mix forms go through the kernel wrappers in ops/cuda/, which launch
+the CUDA kernels on CUDA tensors and run their plain versions on CPU
+tensors; there is no separate mode string for the kernel route. "exact"
+is plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -15,9 +20,13 @@ from __future__ import annotations
 import torch
 
 from estdepth_tpu_torch.ops import geometry
+from estdepth_tpu_torch.ops.cuda.plane_mix import plane_mix_resample
 from estdepth_tpu_torch.ops.cuda.plane_warp import plane_sweep_sample
 from estdepth_tpu_torch.ops.cuda.plane_warp_exact_z import exact_z_resample
+from estdepth_tpu_torch.ops.sampling import trilinear_sample
 from estdepth_tpu_torch.ops.warp_exact_z import zi_field
+
+FRUSTUM_MODES = ("exact", "plane_mix", "plane_mix_exact_z")
 
 
 def plane_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
@@ -63,23 +72,48 @@ def frustum_coords(rel_pose: torch.Tensor, cam_intr: torch.Tensor,
     return t, grid, x, y, z
 
 
+def set_volume_border(volume: torch.Tensor,
+                      border_value: float) -> torch.Tensor:
+    """Every face voxel of [B, D, H, W, C] set to border_value
+    (_set_vol_border, homo_utils.py:305-320)."""
+    out = volume.clone()
+    out[:, [0, -1]] = border_value
+    out[:, :, [0, -1]] = border_value
+    out[:, :, :, [0, -1]] = border_value
+    return out
+
+
 def frustum_warp(volume: torch.Tensor, rel_pose: torch.Tensor,
                  cam_intr: torch.Tensor, depth_values: torch.Tensor,
                  depth_min: float, depth_interval: float,
+                 padding_mode: str = "zeros", padding_value: float = 0.0,
                  mode: str = "plane_mix_exact_z") -> torch.Tensor:
     """Resample a source-view frustum volume [B, D, H, W, C] into the
-    target-view frustum, zeros padding.
+    target-view frustum.
 
     rel_pose [B, 4, 4] = src_pose @ inv(target_pose); cam_intr [B, 3, 3] at
-    the volume's resolution; depth_values [B, D]. Only the eval tools'
-    default mode, "plane_mix_exact_z", is ported; "exact" and "plane_mix"
-    raise NotImplementedError."""
-    if mode != "plane_mix_exact_z":
-        raise NotImplementedError(
-            f"frustum_warp mode {mode!r} is not ported; only "
-            f"'plane_mix_exact_z' is"
-        )
-    _, _, h, w, _ = volume.shape
+    the volume's resolution; depth_values [B, D]. Out-of-range samples are
+    0 with padding_mode "zeros"; "border" (mode "exact" only) clamps the
+    coordinates against a border shell set to padding_value
+    (homo_utils.py:271-275)."""
+    if mode not in FRUSTUM_MODES:
+        raise ValueError(f"unknown frustum_warp mode {mode!r}; one of "
+                         f"{FRUSTUM_MODES}")
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
+    if mode != "exact" and padding_mode != "zeros":
+        raise ValueError(f"{mode} supports zeros padding only")
+    b, d, h, w, c = volume.shape
     t, grid, x, y, z = frustum_coords(rel_pose, cam_intr, depth_values, h, w)
+    if mode == "exact":
+        zi = (z - depth_min) / depth_interval  # fractional source plane
+        if padding_mode == "border":
+            volume = set_volume_border(volume, padding_value)
+            x = x.clamp(0.0, w - 1.0)
+            y = y.clamp(0.0, h - 1.0)
+            zi = zi.clamp(0.0, d - 1.0)
+        return trilinear_sample(volume, x, y, zi).reshape(b, d, h, w, c)
     zi = zi_field(t, cam_intr, depth_values, depth_min, depth_interval, grid)
+    if mode == "plane_mix":
+        return plane_mix_resample(volume, zi, x, y)
     return exact_z_resample(volume, zi, x, y, z, depth_min, depth_interval)

@@ -9,8 +9,9 @@ are the JAX tool's: 256x320 frames, 64 planes in [0.01, 10] m, ResNet-50,
 two synthetic scenes of 12 frames. Synthetic ground truth is rendered at
 the output resolution, so no resize (and no OpenCV) is needed. Weights are
 random from --seed (real weights load with `model.load_state_dict`, e.g.
-from utils/convert.state_dict_from_jax). Runs on the CUDA device unless
---device cpu is given.
+from utils/convert.state_dict_from_jax). --no-exact-z, --exact-warp and
+--fused-attention pick the frustum warp and the attention kernel. Runs on
+the CUDA device unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import time
 import numpy as np
 
 from estdepth_tpu_torch.config import (
-    EvalConfig, ModelConfig, resolve_device, set_fp32_numerics,
+    EvalConfig, ModelConfig, add_model_flags, resolve_device,
+    resolve_frustum_mode, set_fp32_numerics,
 )
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream,
@@ -76,7 +78,8 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
                   depth_min: float = 0.01, depth_max: float = 10.0,
                   resnet: int = 50, lwindow: int = 3, memory_size: int = 2,
                   scenes: int = 2, n_frames: int = 12, seed: int = 0,
-                  device=None) -> dict:
+                  device=None, frustum_mode: str = "plane_mix_exact_z",
+                  fused_attention: bool = False) -> dict:
     """ESTM streaming over synthetic scenes (seeds 0..scenes-1) with random
     weights from `seed`.
 
@@ -86,7 +89,8 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
     set_fp32_numerics()
     model = DepthNetHybrid(ModelConfig(
         ndepths=ndepths, depth_min=depth_min, depth_max=depth_max,
-        resnet=resnet), seed=seed)
+        resnet=resnet, frustum_mode=frustum_mode,
+        use_fused_attention=fused_attention), seed=seed)
     runner = ESTMRunner(model, height, width, lwindow, memory_size,
                         output_scales=SCORED_SCALES, device=dev)
     times, maps, errs = [], [], []
@@ -118,6 +122,7 @@ def parse_args(argv=None):
     p.add_argument("--memory-size", type=int, default=ev.memory_size)
     p.add_argument("--scenes", type=int, default=2)
     p.add_argument("--frames", type=int, default=12)
+    add_model_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None)
     return p.parse_args(argv)
@@ -128,7 +133,9 @@ def main(argv=None) -> None:
     res = run_synthetic(
         args.height, args.width, args.ndepths, args.depth_min,
         args.depth_max, args.resnet, args.lwindow, args.memory_size,
-        args.scenes, args.frames, args.seed, args.device)
+        args.scenes, args.frames, args.seed, args.device,
+        resolve_frustum_mode(args.exact_warp, args.exact_z),
+        args.fused_attention)
     steady = res["times"][4:] or res["times"]
     print(f"{len(res['times'])} frames; inference time: "
           f"{np.mean(steady):.4f}s ({1.0 / np.mean(steady):.2f} fps)")

@@ -1,14 +1,18 @@
-"""Where the time of the ESTM streaming step goes, on the CUDA device.
+"""Where the time of a window step goes, on the CUDA device.
 
-    python -m estdepth_tpu_torch.tools.profile_estm [--frames 8] [--trace DIR]
+    python -m estdepth_tpu_torch.tools.profile_estm [--protocol estm|joint]
+        [--frames 8] [--no-exact-z | --exact-warp] [--fused-attention]
+        [--trace DIR]
 
-Streams one synthetic scene through ESTMRunner at the eval defaults
-(256x320, D = 64, ResNet-50, lwindow 3, memory 2, float32, random weights),
-warms up on the first windows, then records the steady-state frames with
-torch.profiler. Prints one JSON line: host ms per frame, device-busy ms per
-frame (the sum of kernel times; one stream, so kernels do not overlap),
-the device's idle share, the share of each kernel group, and the top
-kernels by device time. --trace writes a Chrome trace there.
+Runs one synthetic scene at the eval defaults (256x320, D = 64, ResNet-50,
+float32, random weights) through ESTMRunner (lwindow 3, memory 2; a step
+is one frame) or, with --protocol joint, through JointRunner (5-frame
+windows advancing by 3, a 1-entry memory; a step is one window of 3
+targets). Warms up on the first steps, then records --frames steady-state
+steps with torch.profiler. Prints one JSON line: host ms per step,
+device-busy ms per step (the sum of kernel times; one stream, so kernels
+do not overlap), the device's idle share, the share of each kernel group,
+and the top kernels by device time. --trace writes a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -23,18 +27,23 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
+from estdepth_tpu_torch.config import (
+    ModelConfig, add_model_flags, resolve_frustum_mode, set_fp32_numerics,
+)
 from estdepth_tpu_torch.data.synthetic import (
-    SyntheticSceneConfig, synthetic_stream,
+    SyntheticSceneConfig, synthetic_stream, synthetic_window,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+from estdepth_tpu_torch.tools.eval_joint import JointRunner
 
 # kernel name -> group, first match wins (cuDNN's BatchNorm and layout
 # kernels before its convolutions)
 GROUPS = [
     ("port: plane_sweep_warp", r"plane_sweep_warp_kernel"),
     ("port: frustum_warp_exact_z", r"frustum_warp_exact_z_kernel"),
+    ("port: frustum_warp_plane_mix", r"frustum_warp_plane_mix_kernel"),
+    ("port: epipolar_attention", r"epipolar_attention_kernel"),
     ("batchnorm (cuDNN, eval)", r"bn_fw_inf|batch_norm"),
     ("groupnorm", r"RowwiseMoments|group_norm|GroupNorm"),
     ("layout / copy / cat", r"nhwcToNchw|nchwToNhwc|copy|Memcpy|"
@@ -56,24 +65,37 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--protocol", choices=["estm", "joint"], default="estm")
     p.add_argument("--frames", type=int, default=8,
-                   help="steady-state frames recorded")
+                   help="steady-state steps recorded")
     p.add_argument("--warmup", type=int, default=4,
-                   help="frames streamed before recording")
+                   help="steps run before recording")
+    add_model_flags(p)
     p.add_argument("--trace", type=str, default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_estm: needs a CUDA device")
     set_fp32_numerics()
     cfg = SyntheticSceneConfig()
-    frames = list(synthetic_stream(cfg, args.warmup + args.frames))
-    runner = ESTMRunner(DepthNetHybrid(ModelConfig()), cfg.height,
-                        cfg.width, device="cuda")
+    model = DepthNetHybrid(ModelConfig(
+        frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
+        use_fused_attention=args.fused_attention))
+    n_steps = args.warmup + args.frames
+    if args.protocol == "estm":
+        runner = ESTMRunner(model, cfg.height, cfg.width, device="cuda")
+        frames = list(synthetic_stream(cfg, n_steps))
 
-    def push(f):
-        out = runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
-        if out is not None:
-            out.cpu()
+        def push(f):
+            out = runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
+            if out is not None:
+                out.cpu()
+    else:
+        runner = JointRunner(model, device="cuda")
+        frames = [synthetic_window(cfg, 5, 3 * wi) for wi in range(n_steps)]
+
+        def push(f):
+            runner.run_window(f["imgs"], f["cam_poses"],
+                              f["cam_intr"])[0].cpu()
 
     for f in frames[:args.warmup]:
         push(f)
@@ -98,6 +120,9 @@ def main(argv=None) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "protocol": args.protocol,
+        "frustum_mode": model.cfg.frustum_mode,
+        "fused_attention": model.cfg.use_fused_attention,
         "frames": n,
         "host_ms_per_frame": 1e3 * wall / n,
         "device_busy_ms_per_frame": busy / n,
@@ -111,7 +136,8 @@ def main(argv=None) -> None:
     }))
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.trace) / "estm_trace.json"))
+        prof.export_chrome_trace(
+            str(Path(args.trace) / f"{args.protocol}_trace.json"))
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ from estdepth_tpu.utils.convert import export_state_dict
 from estdepth_tpu_torch.config import ModelConfig, resolve_device, tiny_config
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
-from estdepth_tpu_torch.ops.cuda import build, plane_warp, plane_warp_exact_z
+from estdepth_tpu_torch.ops.cuda import (
+    build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
+)
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,6 +97,20 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
         run_synthetic(height=64, width=96, ndepths=4, resnet=18, n_frames=3)
     assert ESTMRunner(model, 64, 96, device="cpu").device.type == "cpu"
 
+    from estdepth_tpu_torch.eval import sequence
+    from estdepth_tpu_torch.tools import eval_joint
+
+    for make in (lambda: eval_joint.JointRunner(model),
+                 lambda: sequence.make_joint_processor(model),
+                 lambda: sequence.make_sequence_processor(model),
+                 lambda: sequence.SequenceProcessor(model),
+                 lambda: eval_joint.run_synthetic(
+                     height=64, width=96, ndepths=4, resnet=18, windows=1),
+                 lambda: eval_joint.main(["--synthetic"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert eval_joint.JointRunner(model, device="cpu").device.type == "cpu"
+
 
 def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
     """Off the CPU a wrapper launches its kernel or raises: tensors on
@@ -108,6 +124,19 @@ def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
             torch.empty(1, 2, 4, 5, 4, device="meta"),
             torch.empty(1, 2, 20, device="meta"), coords, coords, coords,
             0.5, 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        plane_mix.plane_mix_resample(
+            torch.empty(1, 2, 4, 5, 4, device="meta"),
+            torch.empty(1, 2, 20, device="meta"), coords, coords)
+    with pytest.raises(ValueError, match="unsupported device"):
+        epipolar_attention.epipolar_attention(
+            torch.empty(1, 2, 4, 5, 16, device="meta"),
+            torch.empty(3, 1, 2, 4, 5, 16, device="meta"),
+            torch.empty(3, 1, 2, 4, 5, 16, device="meta"),
+            torch.ones(3, 1, dtype=torch.bool, device="meta"))
+    assert set(build.sources()) == {
+        "plane_sweep_warp", "frustum_warp_exact_z",
+        "frustum_warp_plane_mix", "epipolar_attention"}
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -134,3 +163,38 @@ def test_wrapper_input_checks():
         build.require(ok.t(), "x", (8, 2), dev)
     with pytest.raises(ValueError, match="requires grad"):
         build.require(ok.clone().requires_grad_(), "x", (2, 8), dev)
+
+
+def test_strided_voxel_rows_check():
+    """The strided form of the check: the K and V halves of a warped
+    [B, N, D, H, W, 2C] volume with the neighbour axis in front pass with
+    their strides; a layout the kernel cannot address raises."""
+    dev = torch.device("cpu")
+    b, n, d, h, w, c = 2, 3, 4, 5, 6, 16
+    warped = torch.zeros(b, n, d, h, w, 2 * c).transpose(0, 1)
+    shape = (n, b, d, h, w, c)
+    vox = d * h * w * 2 * c
+    for half in (warped[..., :c], warped[..., c:]):
+        assert build.require_voxel_rows(half, "wk", shape, dev) == (
+            [vox, n * vox], 2 * c)
+    tk = torch.zeros(b, 2, d, h, w, c)[:, 1]
+    assert build.require_voxel_rows(tk, "tk", (b, d, h, w, c), dev) == (
+        [2 * d * h * w * c], c)
+    one = torch.zeros(1, 1, 1, 1, c)  # size-1 dims: any stride will do
+    assert build.require_voxel_rows(one, "tk", (1, 1, 1, 1, c), dev) == (
+        [0], c)
+    with pytest.raises(ValueError, match="channel stride"):
+        build.require_voxel_rows(
+            torch.zeros(b, d, h, c, w).transpose(-1, -2), "tk",
+            (b, d, h, w, c), dev)
+    with pytest.raises(ValueError, match="one voxel index"):
+        build.require_voxel_rows(
+            torch.zeros(b, h, d, w, c).transpose(1, 2), "tk",
+            (b, d, h, w, c), dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_voxel_rows(torch.zeros(b, d, h, w, c + 2)[..., 2:],
+                                 "tk", (b, d, h, w, c), dev)
+    with pytest.raises(TypeError):
+        build.require_voxel_rows(tk.bfloat16(), "tk", (b, d, h, w, c), dev)
+    with pytest.raises(ValueError, match="shape"):
+        build.require_voxel_rows(tk, "tk", (b, d, h, w, 8), dev)

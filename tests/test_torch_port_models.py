@@ -1,18 +1,10 @@
 """The port's modules, model forward and ESTM stream against the JAX package
 on CPU (the PARITY.md harness rows, with the JAX model as the reference).
 
-One tiny configuration (ndepths 8, 64x96, ResNet-18, as in
-tests/test_estm.py) with JAX's warps set to the eval tools' non-TPU
-default (fast_frustum + exact_z: frustum_warp mode "plane_mix_exact_z").
-Weights are drawn with numpy from a seed for the JAX tree and carried to
-the port through its weight bridge. BatchNorm statistics and scales are
-randomized so no branch is an identity; the residual branches' BN scales
-stay small so the untrained stacks keep O(1) activations.
-
-Camera poses carry a small seeded pitch and lift on top of the synthetic
-scene's motion. Without it the scene's rows project exactly onto the image
-border, where float noise of either framework decides the hard
-out-of-range mask and a full feature value flips.
+The tiny configuration, the numpy-drawn weights and the pitched camera
+path of tests/test_torch_port_common.py, with JAX's warps set to the eval
+tools' non-TPU default (fast_frustum + exact_z: frustum_warp mode
+"plane_mix_exact_z").
 """
 
 from __future__ import annotations
@@ -23,9 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from estdepth_tpu.data.synthetic import SyntheticSceneConfig, synthetic_stream
 from estdepth_tpu.eval.estm import ESTMRunner as JaxRunner
-from estdepth_tpu.models import DepthNetHybrid as JaxModel
 from estdepth_tpu.models import ESTMemory as JaxMemory
 from estdepth_tpu.models.est_transformer import EpipolarTransformer as JaxEST
 from estdepth_tpu.models.psm import PSMFeatureNet as JaxPSM
@@ -37,53 +27,9 @@ from estdepth_tpu_torch.models.est_transformer import EpipolarTransformer
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
-
-H, W, ND, DMIN, DMAX = 64, 96, 8, 0.5, 8.0
-
-
-def _randomize(path, leaf, rng):
-    keys = [getattr(p, "key", "") for p in path]
-    name = keys[-1]
-    residual_bn = (keys[-3:-1] in (["conv2", "bn"], ["conv3", "bn"])
-                   or keys[1] == "pre2")
-    shape = leaf.shape
-    if name == "scale":
-        lo, hi = (0.05, 0.2) if residual_bn else (0.5, 1.5)
-        return rng.uniform(lo, hi, shape).astype(np.float32)
-    if name in ("bias", "mean"):
-        return (0.1 * rng.normal(size=shape)).astype(np.float32)
-    if name == "var":
-        return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-    fan_in = int(np.prod(shape[:-1]))
-    return (rng.normal(size=shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
-
-
-def _random_variables(init_fn, seed=0):
-    """Variables of init_fn's tree shape, drawn with numpy (no JAX init
-    compile: eval_shape only traces)."""
-    rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(init_fn)
-    return jax.tree_util.tree_map_with_path(
-        lambda p, x: _randomize(p, x, rng), shapes)
-
-
-def _pitch(a):
-    m = np.eye(4, dtype=np.float32)
-    c, s = np.cos(a), np.sin(a)
-    m[1:3, 1:3] = [[c, -s], [s, c]]
-    return m
-
-
-def _frames(n=8):
-    cfg = SyntheticSceneConfig(height=H, width=W, focal=80.0)
-    frames = list(synthetic_stream(cfg, n_frames=n, depth_min=DMIN,
-                                   depth_max=DMAX))
-    for i, f in enumerate(frames):
-        p = f["cam_pose"] @ _pitch(0.013 * i + 0.002)
-        p[1, 3] += 0.011 * i
-        f["cam_pose"] = p.astype(np.float32)
-    return frames
-
+from test_torch_port_common import (
+    DMAX, DMIN, ND, H, W, model_pair, pitched_frames, random_variables,
+)
 
 def _window(frames, start):
     sl = frames[start:start + 3]
@@ -94,16 +40,8 @@ def _window(frames, start):
 
 @pytest.fixture(scope="module")
 def models():
-    jm = JaxModel(ndepths=ND, depth_min=DMIN, depth_max=DMAX, resnet=18,
-                  est_transformer=True, fast_frustum=True, exact_z_warp=True)
-    frames = _frames()
-    imgs, poses, intr = _window(frames, 0)
-    variables = _random_variables(lambda: jm.init(
-        jax.random.key(0), jnp.asarray(imgs), jnp.asarray(poses),
-        jnp.asarray(intr), train=False))
-    tm = DepthNetHybrid(ModelConfig(ndepths=ND, depth_min=DMIN,
-                                    depth_max=DMAX, resnet=18))
-    tm.load_state_dict(state_dict_from_jax(variables), strict=True)
+    jm, variables, tm = model_pair()
+    frames = pitched_frames()
     return jm, variables, tm, frames
 
 
@@ -133,7 +71,7 @@ def test_resnet50_features_match_jax(models):
     """The flagship encoder: Bottleneck blocks with projection shortcuts."""
     _, _, _, frames = models
     x = np.zeros((1, H, W, 3), np.float32)
-    variables = _random_variables(lambda: JaxResNet(50).init(
+    variables = random_variables(lambda: JaxResNet(50).init(
         jax.random.key(0), jnp.asarray(x)), seed=5)
     tm = DepthNetHybrid(ModelConfig(ndepths=ND, resnet=50))
     prefix = "semanticFeature."
@@ -169,7 +107,7 @@ def test_est_transformer_matches_jax():
               for _ in range(2))
     valid = np.array([[True], [False], [True]])
     jmod = JaxEST(c)
-    variables = _random_variables(lambda: jmod.init(
+    variables = random_variables(lambda: jmod.init(
         jax.random.key(0), jnp.asarray(tk), jnp.asarray(tv),
         jnp.asarray(wk), jnp.asarray(wv), jnp.asarray(valid)), seed=4)
     tmod = EpipolarTransformer(c)

@@ -237,8 +237,131 @@ def test_exact_z_plain_close_to_pallas_packed():
     assert diff.mean() < 1e-3 * scale, diff.mean()
 
 
-def test_other_frustum_modes_not_ported():
+def test_unknown_frustum_mode_and_padding_raise():
     vol = torch.zeros(1, 2, 4, 4, 4)
-    with pytest.raises(NotImplementedError):
-        twarp.frustum_warp(vol, torch.eye(4)[None], _t(_intr(4, 4, 5.0)),
-                           _t(_dv(2)), DMIN, DINT, mode="exact")
+    args = (vol, torch.eye(4)[None], _t(_intr(4, 4, 5.0)), _t(_dv(2)), DMIN,
+            DINT)
+    with pytest.raises(ValueError, match="unknown frustum_warp mode"):
+        twarp.frustum_warp(*args, mode="plane_mix_pallas")
+    with pytest.raises(ValueError, match="unknown padding_mode"):
+        twarp.frustum_warp(*args, padding_mode="reflect", mode="exact")
+    for mode in ("plane_mix", "plane_mix_exact_z"):
+        with pytest.raises(ValueError, match="zeros padding only"):
+            twarp.frustum_warp(*args, padding_mode="border", mode=mode)
+
+
+@pytest.mark.parametrize("d,h,w", [(5, 7, 9), (1, 4, 5), (6, 1, 2)])
+def test_trilinear_sample_matches_stacked_sampler(d, h, w):
+    """Interior, edge-exact, just-outside and far-outside coordinates."""
+    rng = np.random.default_rng(11)
+    b, n, c = 2, 301, 4
+    src = rng.normal(size=(b, d, h, w, c)).astype(np.float32)
+    x = rng.uniform(-1.5, w + 0.5, size=(b, n)).astype(np.float32)
+    y = rng.uniform(-1.5, h + 0.5, size=(b, n)).astype(np.float32)
+    z = rng.uniform(-1.5, d + 0.5, size=(b, n)).astype(np.float32)
+    x[:, :6] = [0.0, w - 1.0, -1e-6, w - 1 + 1e-5, 0.5, w - 1.5]
+    y[:, :6] = [h - 1.0, 0.0, 0.25, h - 1.0, -1e-6, h - 1 + 1e-5]
+    z[:, :6] = [0.0, d - 1.0, 0.5, d - 1.0, 0.0, 0.25]
+    z[:, 6:9] = [-1e-6, d - 1 + 1e-5, d - 1.0]
+    x[:, 6:9] = y[:, 6:9] = 0.0
+    got = tsampling.trilinear_sample(_t(src), _t(x), _t(y), _t(z))
+    want = jsampling.trilinear_sample_stacked(src, x, y, z)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
+
+
+def _random_volume(seed=7, b=1, d=ND, h=16, w=20, c=8):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(b, d, h, w, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("padding_mode,padding_value",
+                         [("zeros", 0.0), ("border", 0.0), ("border", -1.5)])
+def test_exact_frustum_warp_matches_jax(padding_mode, padding_value):
+    """mode="exact": one trilinear sample per voxel, with zeros padding and
+    with the border shell (set_volume_border) under clamped coordinates."""
+    vol = _random_volume()
+    intr = _intr(16, 20, 18.0)
+    for rel in TRANSLATIONS + ROTATIONS + [_pose(tx=1e3)]:
+        want = jwarp.frustum_warp(vol, rel, intr, _dv(), DMIN, DINT,
+                                  padding_mode=padding_mode,
+                                  padding_value=padding_value, mode="exact")
+        got = twarp.frustum_warp(_t(vol), _t(rel), _t(intr), _t(_dv()),
+                                 DMIN, DINT, padding_mode=padding_mode,
+                                 padding_value=padding_value, mode="exact")
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-4)
+
+
+def test_set_volume_border_matches_jax():
+    vol = _random_volume(b=2, d=3, h=4, w=5, c=2)
+    got = twarp.set_volume_border(_t(vol), 0.25)
+    want = jwarp.set_volume_border(jnp.asarray(vol), 0.25)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    assert (vol != 0.25).all()  # the input is left as it was
+
+
+def _port_plane_mix(vol, rel, intr):
+    return _np(twarp.frustum_warp(_t(vol), _t(rel), _t(intr), _t(_dv()),
+                                  DMIN, DINT, mode="plane_mix"))
+
+
+@pytest.mark.parametrize("case", ["realistic", "translation", "rotation",
+                                  "far"])
+def test_plane_mix_plain_matches_xla(case):
+    """The plain version of kernel 3 (2-tap z-mix, then a bilinear sample)
+    against the JAX dense hat-weight einsum form."""
+    rng = np.random.default_rng(2)
+    b, h, w, c = 1, 24, 32, 8
+    vol = _smooth_volume(rng, b, ND, h, w, c)
+    rel = {"realistic": _rel(), "translation": _pose(tx=0.07, tz=0.05),
+           "rotation": ROTATIONS[1], "far": _pose(tx=1e3)}[case]
+    intr = _intr(h, w, 60.0)
+    want = _frustum(vol, rel, intr, "plane_mix")
+    got = _port_plane_mix(vol, rel, intr)
+    scale = np.abs(vol).max()
+    np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0.0)
+    if case == "far":
+        assert np.abs(got).max() == 0.0
+    else:
+        assert np.abs(got).max() > 0.1 * scale
+
+
+def test_plane_mix_z_window_fades_at_the_ends():
+    """A corner's plane index just outside [0, Z-1] but inside the eps
+    window keeps its value, faded by its distance (the hat weight), and is
+    zero beyond eps; the -2 sentinel is zero."""
+    from estdepth_tpu_torch.ops.cuda.plane_mix import z_mix
+
+    z = 4
+    vol = torch.arange(1.0, z + 1).reshape(1, z, 1, 1, 1).expand(1, z, 1, 1, 4)
+    zi = torch.tensor([[-2.0, -2e-3, -5e-4, 0.0, 1.25, z - 1.0,
+                        z - 1 + 5e-4, z - 1 + 2e-3]]).reshape(1, 8, 1)
+    got = z_mix(vol.contiguous(), zi)[0, :, 0, 0].numpy()
+    want = [0.0, 0.0, 1.0 - 5e-4, 1.0, 2.25, 4.0, 4.0 * (1 - 5e-4), 0.0]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_plane_mix_plain_close_to_pallas_interpret():
+    """tests/test_pallas_warp.py:53-89: the Pallas function's extra
+    deviation is its two-pass x evaluation at row crossings (2e-2 over the
+    poses, 2e-3 against it for in-plane motion, where it is exact), and a
+    warp that throws every sample out of the frustum gives exactly 0."""
+    vol = _random_volume()
+    intr = _intr(16, 20, 18.0)
+    dv5 = np.linspace(0.5, 5.0, ND, dtype=np.float32)[None]
+    dint = float(dv5[0, 1] - dv5[0, 0])
+
+    def both(rel):
+        pls = np.asarray(jwarp.frustum_warp(vol, rel, intr, dv5, 0.5, dint,
+                                            mode="plane_mix_pallas"))
+        got = _np(twarp.frustum_warp(_t(vol), _t(rel), _t(intr), _t(dv5),
+                                     0.5, dint, mode="plane_mix"))
+        return got, pls
+
+    for rel in TRANSLATIONS + ROTATIONS:
+        got, pls = both(rel)
+        np.testing.assert_allclose(got, pls, atol=2e-2, rtol=0.0)
+    for rel in (_pose(), _pose(tx=0.07), _pose(tx=-0.03, ty=0.06)):
+        got, pls = both(rel)
+        np.testing.assert_allclose(got, pls, atol=2e-3, rtol=1e-3)
+    got, pls = both(_pose(tx=1e3))
+    assert np.abs(got).max() == 0.0 and np.abs(pls).max() == 0.0
