@@ -53,7 +53,7 @@ HEIGHT, WIDTH, NDEPTHS, CHANNELS = 256, 320, 64, 32
 DEPTH_MIN, DEPTH_MAX = 0.01, 10.0
 REL_TOL = 1e-5  # max |kernel - plain| / max |plain|
 LWINDOW, MEMORY, FRAMES = 3, 2, 8
-SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 3, 3
+SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 5, 3
 KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
            "frustum_warp_exact_z": plane_warp_exact_z.KERNEL,
            "frustum_warp_plane_mix": plane_mix.KERNEL,
@@ -124,9 +124,9 @@ def phase_build() -> None:
 
 
 def _scene_geometry(dev):
-    """Poses of frames 0..3 of the synthetic scene and K at 1/4 res."""
+    """Poses of frames 0..4 of the synthetic scene and K at 1/4 res."""
     cfg = SyntheticSceneConfig(height=HEIGHT, width=WIDTH)
-    poses = torch.from_numpy(np.stack([pose(cfg, f) for f in range(4)]))
+    poses = torch.from_numpy(np.stack([pose(cfg, f) for f in range(5)]))
     k4 = geometry.scale_intrinsics(
         torch.from_numpy(intrinsics(cfg))[None], 0.25)
     dv = torch.linspace(DEPTH_MIN, DEPTH_MAX, NDEPTHS)[None]
@@ -142,8 +142,77 @@ def _compare(name: str, kernel_out, plain_out) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel}
 
 
+def _measure(name: str, kern, plain, moved: int, flops: float) -> dict:
+    """kern() against plain() under REL_TOL, both timed, and the bound of
+    `moved` bytes and `flops` float32 operations."""
+    out_k, out_p = kern(), plain()
+    m = {"shape": list(out_k.shape), **_compare(name, out_k, out_p)}
+    del out_k, out_p
+    m["ms"] = cuda_ms(kern)
+    m["plain_ms"] = cuda_ms(plain, reps=10)
+    m["bound_ms"], m["bound_by"] = bound_ms(moved, flops)
+    return m
+
+
+def _plane_sweep_case(gen, poses, k4, dv, src_frames, ref_frames) -> dict:
+    """Kernel 1 on one random feature map per entry of src_frames, swept
+    into the frustum of the matching entry of ref_frames."""
+    dev = poses.device
+    h, w, c, d = HEIGHT // 4, WIDTH // 4, CHANNELS, NDEPTHS
+    b = len(src_frames)
+    src = torch.randn(b, h, w, c, generator=gen).to(dev)
+    proj = geometry.camera_projection(k4.expand(len(poses), 3, 3), poses)
+    x, y = warp.plane_sweep_coords(proj[src_frames], proj[ref_frames],
+                                   dv.expand(b, d), h, w)
+    out_numel, voxels = b * d * h * w * c, b * d * h * w
+    m = _measure(
+        "plane_sweep_warp",
+        lambda: plane_warp.plane_sweep_sample(src, x, y),
+        lambda: plane_warp.plane_sweep_sample_plain(src, x, y),
+        nbytes(src, x, y) + 4 * out_numel, out_numel * 9 + voxels * 20)
+    nchw = src.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
+    grid = grid.reshape(b, d * h, w, 2)
+    m["library_ms"] = cuda_ms(lambda: F.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True))
+    return m
+
+
+def _exact_z_case(gen, poses, k4, dv, neighbour_frames, target_frame) -> dict:
+    """Kernel 2 on one random K/V volume per entry of neighbour_frames,
+    warped into the frustum of target_frame."""
+    dev = poses.device
+    h, w, c, d = HEIGHT // 4, WIDTH // 4, CHANNELS, NDEPTHS
+    dint = (DEPTH_MAX - DEPTH_MIN) / (NDEPTHS - 1)
+    b = len(neighbour_frames)
+    vol = torch.randn(b, d, h, w, c, generator=gen).to(dev)
+    rel = torch.matmul(poses[neighbour_frames],
+                       torch.linalg.inv(poses[[target_frame] * b]))
+    t, grid_px, x, y, z = warp.frustum_coords(rel, k4.expand(b, 3, 3),
+                                             dv.expand(b, d), h, w)
+    zi = zi_field(t, k4.expand(b, 3, 3), dv.expand(b, d), DEPTH_MIN, dint,
+                  grid_px)
+
+    def plain():
+        return resample_exact_z(vol, zi, x, y, z, DEPTH_MIN, dint)
+
+    m = _measure(
+        "frustum_warp_exact_z",
+        lambda: plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z,
+                                                    DEPTH_MIN, dint),
+        plain, nbytes(vol, zi, x, y, z) + nbytes(vol),
+        vol.numel() * 32 + vol.numel() // c * 30)
+    m["library_ms"] = None
+    m["valid_share"] = (plain().abs().amax(-1) > 0).float().mean().item()
+    return m
+
+
 def phase_kernels() -> list[dict]:
-    """Each kernel against its plain version at the flagship shapes."""
+    """Each kernel against its plain version at the flagship shapes of
+    every main path that launches it. Kernels 1 and 2 run on both paths:
+    their row's own numbers are taken at the ESTM step's shapes and its
+    "joint" entry at the Joint window's."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     poses, k4, dv = _scene_geometry(dev)
@@ -151,60 +220,26 @@ def phase_kernels() -> list[dict]:
     dint = (DEPTH_MAX - DEPTH_MIN) / (NDEPTHS - 1)
     rows = []
 
-    # kernel 1: target frame 1 swept against neighbours 0 and 2
-    src = torch.randn(2, h, w, c, generator=gen).to(dev)
-    proj = geometry.camera_projection(k4.expand(3, 3, 3), poses[:3])
-    x, y = warp.plane_sweep_coords(proj[[0, 2]], proj[[1, 1]],
-                                   dv.expand(2, d), h, w)
-    out_k = plane_warp.plane_sweep_sample(src, x, y)
-    out_p = plane_warp.plane_sweep_sample_plain(src, x, y)
-    row = {"name": "plane_sweep_warp", "route": "cuda",
-           "source": "estdepth_tpu_torch/csrc/plane_sweep_warp.cu",
-           "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:588",
-           **_compare("plane_sweep_warp", out_k, out_p)}
-    row["ms"] = cuda_ms(lambda: plane_warp.plane_sweep_sample(src, x, y))
-    row["plain_ms"] = cuda_ms(
-        lambda: plane_warp.plane_sweep_sample_plain(src, x, y), reps=10)
-    nchw = src.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
-    grid = grid.reshape(2, d * h, w, 2)
-    row["library_ms"] = cuda_ms(lambda: F.grid_sample(
-        nchw, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True))
-    voxels = out_k.numel() // c
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(src, x, y, out_k), out_k.numel() * 9 + voxels * 20)
-    rows.append(row)
+    # kernel 1. ESTM: target frame 1 swept against neighbours 0 and 2.
+    # Joint: targets 1, 2, 3 of a 5-frame window, each against the frames
+    # before and after it (B = 6).
+    rows.append({
+        "name": "plane_sweep_warp", "route": "cuda",
+        "source": "estdepth_tpu_torch/csrc/plane_sweep_warp.cu",
+        "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:588",
+        **_plane_sweep_case(gen, poses, k4, dv, [0, 2], [1, 1]),
+        "joint": _plane_sweep_case(gen, poses, k4, dv, [0, 2, 1, 3, 2, 4],
+                                   [1, 1, 2, 2, 3, 3])})
 
-    # kernel 2: target frame 2 against memory frames 1 and 0
-    vol = torch.randn(2, d, h, w, c, generator=gen).to(dev)
-    rel = torch.matmul(poses[[1, 0]], torch.linalg.inv(poses[[2, 2]]))
-    t, grid_px, x, y, z = warp.frustum_coords(rel, k4.expand(2, 3, 3),
-                                             dv.expand(2, d), h, w)
-    zi = zi_field(t, k4.expand(2, 3, 3), dv.expand(2, d), DEPTH_MIN, dint,
-                  grid_px)
-
-    def kern():
-        return plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z,
-                                                   DEPTH_MIN, dint)
-
-    def plain():
-        return resample_exact_z(vol, zi, x, y, z, DEPTH_MIN, dint)
-
-    out_k, out_p = kern(), plain()
-    row = {"name": "frustum_warp_exact_z", "route": "cuda",
-           "source": "estdepth_tpu_torch/csrc/frustum_warp_exact_z.cu",
-           "replaces": "estdepth_tpu/ops/pallas/plane_warp_exact_z.py:281",
-           **_compare("frustum_warp_exact_z", out_k, out_p)}
-    row["ms"] = cuda_ms(kern)
-    row["plain_ms"] = cuda_ms(plain, reps=10)
-    row["library_ms"] = None
-    voxels = out_k.numel() // c
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(vol, zi, x, y, z, out_k), out_k.numel() * 32 + voxels * 30)
-    row["valid_share"] = (out_p.abs().amax(-1) > 0).float().mean().item()
-    rows.append(row)
-    del vol, out_k, out_p
+    # kernel 2. ESTM: target frame 2 against memory frames 1 and 0.
+    # Joint: target frame 1 against in-window targets 0 and 2 and the
+    # memory frame 3 (B = 3), the poses of kernel 3's row.
+    rows.append({
+        "name": "frustum_warp_exact_z", "route": "cuda",
+        "source": "estdepth_tpu_torch/csrc/frustum_warp_exact_z.cu",
+        "replaces": "estdepth_tpu/ops/pallas/plane_warp_exact_z.py:281",
+        **_exact_z_case(gen, poses, k4, dv, [1, 0], 2),
+        "joint": _exact_z_case(gen, poses, k4, dv, [0, 2, 3], 1)})
 
     # kernel 3, Joint window: target frame 1 against in-window targets 0
     # and 2 and the memory frame 3, keys and values concatenated
@@ -357,42 +392,6 @@ def phase_reference() -> None:
         raise AssertionError(f"card vs CPU stream: max abs err {err}")
 
 
-def phase_reference_joint() -> None:
-    """A small Joint chain (ndepths 8, 64x96, ResNet-18, seq_length 5, 3
-    windows) with the plane-mix warp and the attention kernel on the card
-    against the plain PyTorch path on the CPU, same weights: all 4 depth
-    scales within the chain tolerance 8e-3."""
-    frames = _pitched_frames((JOINT_WINDOWS - 1) * (SEQ_LENGTH - 2)
-                             + SEQ_LENGTH)
-    imgs = np.stack([f["img"] for f in frames])[None]
-    poses = np.stack([f["cam_pose"] for f in frames])[None]
-    intr = frames[0]["cam_intr"][None]
-    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
-                      frustum_mode="plane_mix", use_fused_attention=True)
-    counts = {name: k.launches for name, k in KERNELS.items()}
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        runner = eval_joint.JointRunner(DepthNetHybrid(cfg, seed=0),
-                                        device=dev)
-        outs[dev] = []
-        for wi in range(JOINT_WINDOWS):
-            sl = slice(wi * (SEQ_LENGTH - 2), wi * (SEQ_LENGTH - 2)
-                       + SEQ_LENGTH)
-            outs[dev].append(runner.run_window(
-                imgs[:, sl], poses[:, sl], intr)[0].cpu())
-    launched = {name: k.launches - counts[name]
-                for name, k in KERNELS.items()}
-    err = max((a - b).abs().max().item()
-              for a, b in zip(outs["cpu"], outs["cuda"]))
-    log("reference_joint", windows=len(outs["cuda"]), launches=launched,
-        max_abs_err=err, atol=8e-3)
-    if not (outs["cuda"][0].shape == (1, 3, 4, 64, 96) and err < 8e-3):
-        raise AssertionError(f"card vs CPU Joint chain: max abs err {err}")
-    if not (launched["frustum_warp_plane_mix"] == 6
-            and launched["epipolar_attention"] == 6):
-        raise AssertionError(f"small Joint chain launches {launched}")
-
-
 def _reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
@@ -400,6 +399,52 @@ def _reset_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def phase_reference_joint() -> None:
+    """A small Joint chain (ndepths 8, 64x96, ResNet-18, seq_length 5, 3
+    windows) on the card through the kernels against the plain PyTorch path
+    on the CPU, same weights, once in the default mode (exact-z warp) and
+    once with the plane-mix warp and the attention kernel: all 4 depth
+    scales within the chain tolerance 8e-3."""
+    windows, stride = 3, SEQ_LENGTH - 2
+    frames = _pitched_frames((windows - 1) * stride + SEQ_LENGTH)
+    imgs = np.stack([f["img"] for f in frames])[None]
+    poses = np.stack([f["cam_pose"] for f in frames])[None]
+    intr = frames[0]["cam_intr"][None]
+    fused = (windows - 1) * stride  # one warp per target of an EST window
+    modes = {
+        "plane_mix_exact_z": (dict(), {"frustum_warp_exact_z": fused}),
+        "plane_mix": (dict(frustum_mode="plane_mix",
+                           use_fused_attention=True),
+                      {"frustum_warp_plane_mix": fused,
+                       "epipolar_attention": fused}),
+    }
+    for mode, (options, expected) in modes.items():
+        cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                          **options)
+        counts = _read_counts()
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            runner = eval_joint.JointRunner(DepthNetHybrid(cfg, seed=0),
+                                            device=dev)
+            outs[dev] = [runner.run_window(
+                imgs[:, wi * stride:wi * stride + SEQ_LENGTH],
+                poses[:, wi * stride:wi * stride + SEQ_LENGTH],
+                intr)[0].cpu() for wi in range(windows)]
+        launched = {name: n - counts[name]
+                    for name, n in _read_counts().items()}
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(outs["cpu"], outs["cuda"]))
+        log("reference_joint", frustum_mode=mode, windows=windows,
+            launches=launched, max_abs_err=err, atol=8e-3)
+        if not (outs["cuda"][0].shape == (1, 3, 4, 64, 96) and err < 8e-3):
+            raise AssertionError(f"card vs CPU Joint chain ({mode}): max abs "
+                                 f"err {err}")
+        if launched != {**dict.fromkeys(KERNELS, 0),
+                        "plane_sweep_warp": windows, **expected}:
+            raise AssertionError(f"small Joint chain ({mode}) launches "
+                                 f"{launched}")
 
 
 def phase_main_path(rows: list[dict]) -> None:
@@ -439,7 +484,7 @@ def phase_main_path(rows: list[dict]) -> None:
 
 def phase_joint_path(rows: list[dict]) -> None:
     """The Joint window chain at the flagship width through
-    tools.eval_joint.run_synthetic, 3 windows (11 frames): once with the
+    tools.eval_joint.run_synthetic, 5 windows (17 frames): once with the
     default warp (exact-z) and once with the plane-mix warp and the
     attention kernel. Every kernel's count is set to 0 just before each
     run and read just after."""
@@ -477,7 +522,9 @@ def phase_joint_path(rows: list[dict]) -> None:
         if launches != expected:
             raise AssertionError(f"{path}: kernel launches {launches}, "
                                  f"expected {expected}")
-        ms = 1e3 * statistics.median(res["times"][1:])  # the EST windows
+        # steady state: the EST windows after the first, which also pays
+        # for cuDNN's choice of algorithms at the fusion's shapes
+        ms = 1e3 * statistics.median(res["times"][2:])
         log("joint_path", path=path, windows=JOINT_WINDOWS,
             targets_per_window=targets, launches=launches, ms_per_window=ms,
             targets_per_s=targets * 1e3 / ms,

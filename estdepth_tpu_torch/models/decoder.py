@@ -235,10 +235,7 @@ class DepthHybridDecoder(nn.Module):
         init_logits = _head_logits(self.stereo_head0, value)
         depth3, prob3 = softargmin_depth(init_logits, dv_bn)
 
-        # keys channels-last in memory, not as a view of the conv's NCDHW
-        # output: the attention kernel reads a voxel's channels as one row
-        key_w = key.permute(0, 2, 3, 4, 1).contiguous().reshape(
-            b, num, d, h, w, -1)
+        key_w = key.permute(0, 2, 3, 4, 1).reshape(b, num, d, h, w, -1)
         value_w = value.permute(0, 2, 3, 4, 1).reshape(b, num, d, h, w, -1)
         if use_est:
             fusion = (self._est_fusion_sequential if self.sequential_fusion

@@ -57,10 +57,15 @@ class EpipolarTransformer(nn.Module):
             if neighbor_valid is None:
                 neighbor_valid = torch.ones(n, b, dtype=torch.bool,
                                             device=target_key.device)
-            attend = (epipolar_attention if self.use_fused_attention
-                      else epipolar_attention_plain)
-            h = attend(target_key, warped_keys, warped_values,
-                       neighbor_valid)
+            if self.use_fused_attention:
+                # the kernel reads a voxel's channels as one row, and the
+                # decoder's keys are a view of a conv's NCDHW output: only
+                # this route pays for the channels-last copy
+                h = epipolar_attention(target_key.contiguous(), warped_keys,
+                                       warped_values, neighbor_valid)
+            else:
+                h = epipolar_attention_plain(target_key, warped_keys,
+                                             warped_values, neighbor_valid)
         else:
             h = torch.zeros_like(target_value)
 

@@ -149,7 +149,6 @@ def parse_args(argv=None):
     p.add_argument("--depth-max", type=float, default=mc.depth_max)
     p.add_argument("--resnet", type=int, default=mc.resnet)
     p.add_argument("--seq-length", type=int, default=5)
-    p.add_argument("--windows", type=int, default=3)
     p.add_argument("--no-est", action="store_true",
                    help="the pure stereo path in every window")
     p.add_argument("--scan", action="store_true",
@@ -164,10 +163,11 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     res = run_synthetic(
         args.height, args.width, args.ndepths, args.depth_min,
-        args.depth_max, args.resnet, args.seq_length, args.windows,
-        not args.no_est, args.scan,
-        resolve_frustum_mode(args.exact_warp, args.exact_z),
-        args.fused_attention, args.seed, args.device)
+        args.depth_max, args.resnet, args.seq_length,
+        est_on=not args.no_est, scan=args.scan,
+        frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
+        fused_attention=args.fused_attention, seed=args.seed,
+        device=args.device)
     targets = res["maps"].shape[0] * res["maps"].shape[1]
     total = sum(res["times"])
     print(f"{res['maps'].shape[0]} windows, {targets} target frames in "

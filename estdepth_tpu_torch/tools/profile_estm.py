@@ -8,11 +8,16 @@ Runs one synthetic scene at the eval defaults (256x320, D = 64, ResNet-50,
 float32, random weights) through ESTMRunner (lwindow 3, memory 2; a step
 is one frame) or, with --protocol joint, through JointRunner (5-frame
 windows advancing by 3, a 1-entry memory; a step is one window of 3
-targets). Warms up on the first steps, then records --frames steady-state
-steps with torch.profiler. Prints one JSON line: host ms per step,
-device-busy ms per step (the sum of kernel times; one stream, so kernels
-do not overlap), the device's idle share, the share of each kernel group,
-and the top kernels by device time. --trace writes a Chrome trace there.
+targets). Warms up on the first steps, times --frames steady-state steps
+without the profiler (the median step, and how much of it the host spends
+issuing the step's launches before it waits for the result), then records
+--frames more with torch.profiler. Prints one JSON line: those two times,
+host ms per step under the profiler, device-busy ms per step (the sum of
+kernel times; one stream, so kernels do not overlap), the device's idle
+share, the share of each kernel group, and the top kernels by device time.
+The profiler adds its own time to every launch: where the step without it
+is shorter than device-busy with it, trust the shares, not the sum.
+--trace writes a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -80,30 +86,42 @@ def main(argv=None) -> None:
     model = DepthNetHybrid(ModelConfig(
         frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
         use_fused_attention=args.fused_attention))
-    n_steps = args.warmup + args.frames
+    n_steps = args.warmup + 2 * args.frames
     if args.protocol == "estm":
         runner = ESTMRunner(model, cfg.height, cfg.width, device="cuda")
         frames = list(synthetic_stream(cfg, n_steps))
 
-        def push(f):
-            out = runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
-            if out is not None:
-                out.cpu()
+        def issue(f):
+            return runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
     else:
         runner = JointRunner(model, device="cuda")
         frames = [synthetic_window(cfg, 5, 3 * wi) for wi in range(n_steps)]
 
-        def push(f):
-            runner.run_window(f["imgs"], f["cam_poses"],
-                              f["cam_intr"])[0].cpu()
+        def issue(f):
+            return runner.run_window(f["imgs"], f["cam_poses"],
+                                     f["cam_intr"])[0]
+
+    def push(f):
+        """One step and the fetch of its result: (seconds until the step's
+        launches were issued, seconds until the result was on the host)."""
+        t0 = time.perf_counter()
+        out = issue(f)
+        t1 = time.perf_counter()
+        if out is not None:
+            out.cpu()
+        return t1 - t0, time.perf_counter() - t0
 
     for f in frames[:args.warmup]:
         push(f)
     torch.cuda.synchronize()
+    plain_steps = [push(f) for f in frames[args.warmup:-args.frames]]
+    torch.cuda.synchronize()
+    issue_ms = 1e3 * statistics.median(t for t, _ in plain_steps)
+    step_ms = 1e3 * statistics.median(t for _, t in plain_steps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in frames[args.warmup:]:
+        for f in frames[-args.frames:]:
             push(f)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -124,6 +142,9 @@ def main(argv=None) -> None:
         "frustum_mode": model.cfg.frustum_mode,
         "fused_attention": model.cfg.use_fused_attention,
         "frames": n,
+        "unprofiled_ms_per_frame": step_ms,
+        "unprofiled_issue_ms_per_frame": issue_ms,
+        "unprofiled_issue_share": issue_ms / step_ms,
         "host_ms_per_frame": 1e3 * wall / n,
         "device_busy_ms_per_frame": busy / n,
         "device_idle_share": 1.0 - busy / (1e3 * wall) if wall else None,

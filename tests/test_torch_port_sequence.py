@@ -5,7 +5,8 @@ SequenceProcessor are ESTMRunner's stream, with the scene uploaded once
 and the matching features computed once per frame; the results must agree
 to float noise (atol 1e-5; the JAX package pins its scan forms to its
 loops the same way in tests/test_joint_scan.py and tests/test_sequence.py).
-The runners themselves are held against the JAX package in
+The processors are held against the JAX package's own in
+tests/test_torch_port_sequence_jax.py, the runners in
 tests/test_torch_port_models.py and tests/test_torch_port_joint.py.
 """
 
