@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from estdepth_tpu_torch/csrc, holds
+Builds the port's five CUDA kernels from estdepth_tpu_torch/csrc, holds
 each against its plain PyTorch version at the flagship shapes of the path
-that runs it, checks the plane-sweep kernel against the analytic depth of a
-synthetic scene, holds a small ESTM stream and a small Joint chain on the
-card against the plain path on the CPU, and drives both protocols at full
-width (256x320, D = 64, ResNet-50, float32, random weights from a seed)
-through the kernels: the ESTM streaming step (lwindow 3, memory 2) and the
-Joint window chain (5 frames in, 3 depth maps out, a 1-entry memory), the
-latter once with the default warp and once with the plane-mix warp and the
-attention kernel. Every phase prints one line; any failure raises and
-exits non-zero. The last line is {"ok": true, "device": {...}}.
+that runs it, and the warp kernels' gradients against autograd of their
+plain versions; checks the plane-sweep kernel against the analytic depth of
+a synthetic scene; holds a small ESTM stream, a small Joint chain and three
+small training steps on the card against the plain path on the CPU; and
+drives three paths at full width (256x320, D = 64, ResNet-50, float32,
+random weights from a seed) through the kernels: the ESTM streaming step
+(lwindow 3, memory 2), the Joint window chain (5 frames in, 3 depth maps
+out, a 1-entry memory; once with the default warp and once with the
+plane-mix warp and the attention kernel), and the training step of
+tools/train.py (5-frame windows, batch 1, EST on; once with the default
+plane sweep and once through the fused two-pass resample). Every phase
+prints one line; any failure raises and exits non-zero. The last line is
+{"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when no CUDA device is present.
@@ -25,6 +29,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,24 +45,38 @@ from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
+    two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools import eval_joint
+from estdepth_tpu_torch.tools import train as train_tool
 from estdepth_tpu_torch.tools.eval_estm import run_synthetic
+from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
+from estdepth_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 # Flagship shapes: 256x320 frames, cost volume 64x80, D = 64 planes, 32
 # matching channels. ESTM step: 2 plane-sweep neighbours and 2 memory
 # neighbours. Joint window: 3 targets, each attending over 3 neighbours
-# (2 in-window, 1 memory) of 16 key + 16 value channels.
+# (2 in-window, 1 memory) of 16 key + 16 value channels. Training window:
+# 5 frames, 3 targets, 6 plane sweeps, each target fused over its 2
+# in-window neighbours (no memory).
 HEIGHT, WIDTH, NDEPTHS, CHANNELS = 256, 320, 64, 32
 DEPTH_MIN, DEPTH_MAX = 0.01, 10.0
 REL_TOL = 1e-5  # max |kernel - plain| / max |plain|
+# Gradients: both sides scatter-add with float atomics, whose order changes
+# from run to run, and the exact-z form carries factors up to D - 1 = 63;
+# measured up to 5.3e-6 of the gradient's scale.
+GRAD_TOL = 3e-5
 LWINDOW, MEMORY, FRAMES = 3, 2, 8
 SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 5, 3
+TRAIN_FRAMES, TRAIN_STEPS = 5, 4  # the first step warms up
+# in the order of PERF.md's table of TPU kernels (rows 1 to 5)
 KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
            "frustum_warp_exact_z": plane_warp_exact_z.KERNEL,
+           "two_pass_resample": two_pass.KERNEL,
            "frustum_warp_plane_mix": plane_mix.KERNEL,
            "epipolar_attention": epipolar_attention.KERNEL}
+WINDOW_SWEEPS = ([0, 2, 1, 3, 2, 4], [1, 1, 2, 2, 3, 3])  # (src, ref) frames
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -170,12 +189,67 @@ def _plane_sweep_case(gen, poses, k4, dv, src_frames, ref_frames) -> dict:
         lambda: plane_warp.plane_sweep_sample(src, x, y),
         lambda: plane_warp.plane_sweep_sample_plain(src, x, y),
         nbytes(src, x, y) + 4 * out_numel, out_numel * 9 + voxels * 20)
+    m["library_ms"] = _grid_sample_ms(src, x, y)
+    return m
+
+
+def _grid_sample_ms(src, x, y) -> float:
+    """One F.grid_sample call over the same coordinates (a softer edge
+    rule than the port's hard mask): timed here, used nowhere."""
+    b, h, w, _ = src.shape
     nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
-    grid = grid.reshape(b, d * h, w, 2)
-    m["library_ms"] = cuda_ms(lambda: F.grid_sample(
+    grid = grid.reshape(b, -1, w, 2)
+    return cuda_ms(lambda: F.grid_sample(
         nchw, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True))
+
+
+def _two_pass_inputs(gen, poses, k4, dv, src_frames, ref_frames):
+    """One random feature map per entry of src_frames with the line
+    coefficients and exact coordinates of its sweep into ref_frames."""
+    dev = poses.device
+    h, w, c, d = HEIGHT // 4, WIDTH // 4, CHANNELS, NDEPTHS
+    b = len(src_frames)
+    src = torch.randn(b, h, w, c, generator=gen).to(dev)
+    proj = geometry.camera_projection(k4.expand(len(poses), 3, 3), poses)
+    rot, trans = geometry.relative_projection(proj[src_frames],
+                                              proj[ref_frames])
+    ab = warp.plane_sweep_line_coeffs(rot, trans, dv.expand(b, d), w)
+    x, y = warp.plane_sweep_coords(proj[src_frames], proj[ref_frames],
+                                   dv.expand(b, d), h, w)
+    return src, ab, x.reshape(b * d, h * w), y.reshape(b * d, h * w)
+
+
+def _two_pass_case(gen, poses, k4, dv, src_frames, ref_frames,
+                   planes_per_map: int = NDEPTHS) -> dict:
+    """Kernel 3 on the plane sweep of src_frames into ref_frames. With
+    planes_per_map = 1 every plane reads a map of its own (the frustum
+    modes' second stage), at the same coordinates."""
+    src, ab, x, y = _two_pass_inputs(gen, poses, k4, dv, src_frames,
+                                     ref_frames)
+    b, h, w, c = src.shape
+    if planes_per_map == 1:
+        src = torch.randn(ab.shape[0], h, w, c, generator=gen).to(src.device)
+    out_numel = ab.shape[0] * h * w * c
+    m = _measure(
+        "two_pass_resample",
+        lambda: two_pass.two_pass_resample(src, ab, x, y, planes_per_map),
+        lambda: two_pass.two_pass_resample_plain(src, ab, x, y,
+                                                 planes_per_map),
+        nbytes(src, ab, x, y) + 4 * out_numel,
+        out_numel * 8 + out_numel // c * 24)
+    m["planes_per_map"] = planes_per_map
+    if planes_per_map > 1:
+        m["library_ms"] = _grid_sample_ms(src, x.reshape(b, -1),
+                                          y.reshape(b, -1))
+        # how far the two-pass form is from the exact bilinear sample
+        # (kernel 1) on this scene; no limit, a property of the function
+        exact = plane_warp.plane_sweep_sample(src, x.reshape(b, -1),
+                                              y.reshape(b, -1))
+        got = two_pass.two_pass_resample(src, ab, x, y, planes_per_map)
+        m["max_abs_dev_from_exact_sample"] = (
+            got.reshape(exact.shape) - exact).abs().max().item()
     return m
 
 
@@ -228,12 +302,11 @@ def phase_kernels() -> list[dict]:
         "source": "estdepth_tpu_torch/csrc/plane_sweep_warp.cu",
         "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:588",
         **_plane_sweep_case(gen, poses, k4, dv, [0, 2], [1, 1]),
-        "joint": _plane_sweep_case(gen, poses, k4, dv, [0, 2, 1, 3, 2, 4],
-                                   [1, 1, 2, 2, 3, 3])})
+        "joint": _plane_sweep_case(gen, poses, k4, dv, *WINDOW_SWEEPS)})
 
     # kernel 2. ESTM: target frame 2 against memory frames 1 and 0.
     # Joint: target frame 1 against in-window targets 0 and 2 and the
-    # memory frame 3 (B = 3), the poses of kernel 3's row.
+    # memory frame 3 (B = 3), the poses of kernel 4's row.
     rows.append({
         "name": "frustum_warp_exact_z", "route": "cuda",
         "source": "estdepth_tpu_torch/csrc/frustum_warp_exact_z.cu",
@@ -241,7 +314,19 @@ def phase_kernels() -> list[dict]:
         **_exact_z_case(gen, poses, k4, dv, [1, 0], 2),
         "joint": _exact_z_case(gen, poses, k4, dv, [0, 2, 3], 1)})
 
-    # kernel 3, Joint window: target frame 1 against in-window targets 0
+    # kernel 3. Its row's own numbers at the training window's plane sweep
+    # (6 maps, 64 planes each), "estm" at the ESTM step's (2 maps), and
+    # once with a map per plane.
+    rows.append({
+        "name": "two_pass_resample", "route": "cuda",
+        "source": "estdepth_tpu_torch/csrc/two_pass_resample.cu",
+        "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:305",
+        **_two_pass_case(gen, poses, k4, dv, *WINDOW_SWEEPS),
+        "estm": _two_pass_case(gen, poses, k4, dv, [0, 2], [1, 1]),
+        "map_per_plane": _two_pass_case(gen, poses, k4, dv, [0], [1], 1)})
+    rows[-1]["map_per_plane"]["library_ms"] = None
+
+    # kernel 4, Joint window: target frame 1 against in-window targets 0
     # and 2 and the memory frame 3, keys and values concatenated
     n = JOINT_NEIGHBOURS
     vol = torch.randn(n, d, h, w, c, generator=gen).to(dev)
@@ -272,8 +357,8 @@ def phase_kernels() -> list[dict]:
     rows.append(row)
     del vol, out_p
 
-    # kernel 4, Joint window: the target's key against the K and V halves
-    # of the volume kernel 3 just wrote, read in place as the fusion does
+    # kernel 5, Joint window: the target's key against the K and V halves
+    # of the volume kernel 4 just wrote, read in place as the fusion does
     ck = c // 2
     tk = torch.randn(1, d, h, w, ck, generator=gen).to(dev)
     view = warped.reshape(1, n, d, h, w, c).transpose(0, 1)
@@ -447,6 +532,161 @@ def phase_reference_joint() -> None:
                                  f"{launched}")
 
 
+def _backward_ms(make_out, leaf, ct, reps: int = 5) -> float:
+    """Median device time in ms of the backward alone: a fresh forward
+    before each timed `autograd.grad`."""
+    times = []
+    for i in range(reps + 1):
+        out = make_out()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, leaf, ct)
+        end.record()
+        end.synchronize()
+        if i:  # the first call warms up
+            times.append(start.elapsed_time(end))
+        del out
+    return statistics.median(times)
+
+
+def _gradient_case(name, wrapper, plain, volume, coords, seed) -> dict:
+    """The wrapper's volume gradient on the card (kernel forward, autograd
+    of the plain version backward) against autograd of `plain` called
+    directly, for one random cotangent from a seeded generator. The
+    coordinates require grad too and must get none."""
+    kernel = KERNELS[name]
+    vol = volume.clone().requires_grad_()
+    cs = [c.clone().requires_grad_() for c in coords]
+    before = kernel.launches
+    out = wrapper(vol, *cs)
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{name}: the forward did not launch its kernel")
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed)
+                     ).to(out.device)
+    out.backward(ct)
+    if any(c.grad is not None for c in cs):
+        raise AssertionError(f"{name}: a coordinate input got a gradient")
+    got = vol.grad
+    ref = volume.clone().requires_grad_()
+    (want,) = torch.autograd.grad(plain(ref, *coords), ref, ct)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not (scale > 0 and err < GRAD_TOL * scale):
+        raise AssertionError(f"{name}: gradient max abs err {err} at scale "
+                             f"{scale}")
+    del out, got, want
+    leaf = volume.clone().requires_grad_()
+    return {"name": name, "shape": list(volume.shape), "max_abs_err": err,
+            "scale": scale, "backward_ms": _backward_ms(
+                lambda: wrapper(leaf, *coords), leaf, ct)}
+
+
+def phase_gradients(rows: list[dict]) -> None:
+    """Kernels 1 to 4 under autograd at the training window's shapes: 6
+    plane sweeps; 2 in-window neighbours warped into a target's frustum."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    poses, k4, dv = _scene_geometry(dev)
+    h, w, c, d = HEIGHT // 4, WIDTH // 4, CHANNELS, NDEPTHS
+    dint = (DEPTH_MAX - DEPTH_MIN) / (NDEPTHS - 1)
+    src, ab, x, y = _two_pass_inputs(gen, poses, k4, dv, *WINDOW_SWEEPS)
+    b = src.shape[0]
+
+    def exact(s, _ab, xs, ys):  # the two-pass kernel's backward function
+        return plane_warp.plane_sweep_sample_plain(
+            s, xs.reshape(b, -1), ys.reshape(b, -1)).reshape(-1, h, w, c)
+
+    cases = [_gradient_case(
+        "plane_sweep_warp", plane_warp.plane_sweep_sample,
+        plane_warp.plane_sweep_sample_plain, src,
+        (x.reshape(b, -1), y.reshape(b, -1)), 0)]
+    cases.append(_gradient_case(
+        "two_pass_resample",
+        lambda s, *cs: two_pass.two_pass_resample(s, *cs, NDEPTHS), exact,
+        src, (ab, x, y), 1))
+    del src, ab, x, y
+    n = 2
+    vol = torch.randn(n, d, h, w, c, generator=gen).to(dev)
+    rel = torch.matmul(poses[[0, 2]], torch.linalg.inv(poses[[1, 1]]))
+    t, grid_px, x, y, z = warp.frustum_coords(rel, k4.expand(n, 3, 3),
+                                             dv.expand(n, d), h, w)
+    zi = zi_field(t, k4.expand(n, 3, 3), dv.expand(n, d), DEPTH_MIN, dint,
+                  grid_px)
+    cases.append(_gradient_case(
+        "frustum_warp_exact_z",
+        lambda v, *cs: plane_warp_exact_z.exact_z_resample(
+            v, *cs, DEPTH_MIN, dint),
+        lambda v, *cs: resample_exact_z(v, *cs, DEPTH_MIN, dint), vol,
+        (zi, x, y, z), 2))
+    cases.append(_gradient_case(
+        "frustum_warp_plane_mix", plane_mix.plane_mix_resample,
+        plane_mix.plane_mix_resample_plain, vol, (zi, x, y), 3))
+    by_name = {row["name"]: row for row in rows}
+    for case in cases:
+        log("gradient", **case)
+        by_name[case["name"]]["backward_ms"] = case["backward_ms"]
+        by_name[case["name"]]["grad_max_abs_err"] = case["max_abs_err"]
+    by_name["epipolar_attention"]["backward_ms"] = None  # forward-only
+    torch.cuda.empty_cache()
+
+
+def phase_reference_train() -> None:
+    """3 training steps at a small size (ndepths 8, 64x96, ResNet-18,
+    4-frame windows: 2 targets, so the EST fusion warps) on the card
+    through the kernels against the plain PyTorch path on the CPU, from
+    the same seeded state and batches, once per plane-sweep route: the
+    loss of each step at rtol 3e-3 and every BatchNorm running statistic
+    at rtol 5e-3 (atol 5e-4), the PARITY.md trajectory tolerances."""
+    frames = _pitched_frames(7)
+    windows = [(0, 4), (2, 6), (3, 7)]
+
+    def batch(lo, hi, dev):
+        arrays = {
+            "imgs": np.stack([f["img"] for f in frames[lo:hi]])[None],
+            "cam_poses": np.stack([f["cam_pose"] for f in frames[lo:hi]])[
+                None],
+            "cam_intr": frames[0]["cam_intr"][None],
+            "dmaps": np.stack([f["dmap"] for f in frames[lo + 1:hi - 1]])[
+                None],
+            "dmasks": np.stack([f["dmask"] for f in frames[lo + 1:hi - 1]])[
+                None]}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in arrays.items()}
+
+    for two_pass_warp in (False, True):
+        cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                          two_pass_warp=two_pass_warp)
+        counts = _read_counts()
+        losses, stats = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = DepthNetHybrid(cfg, seed=0).to(dev)
+            optimizer, scheduler = make_optimizer(
+                model.named_parameters(),
+                warmup_multistep_schedule(4e-5, steps_per_epoch=10**6))
+            step = make_train_step(model, optimizer, scheduler, 0.5, 8.0)
+            losses[dev] = [float(step(batch(lo, hi, dev), 10.0)["loss"])
+                           for lo, hi in windows]
+            stats[dev] = {k: v.cpu() for k, v in model.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}
+        launched = {name: n - counts[name]
+                    for name, n in _read_counts().items()}
+        sweep = "two_pass_resample" if two_pass_warp else "plane_sweep_warp"
+        # per step: one sweep; one frustum warp per target of the window
+        if launched != {**dict.fromkeys(KERNELS, 0), sweep: len(windows),
+                        "frustum_warp_exact_z": 2 * len(windows)}:
+            raise AssertionError(f"small training steps launches {launched}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=3e-3)
+        worst = 0.0
+        for k, want in stats["cpu"].items():
+            np.testing.assert_allclose(stats["cuda"][k].numpy(), want.numpy(),
+                                       rtol=5e-3, atol=5e-4, err_msg=k)
+            worst = max(worst, (stats["cuda"][k] - want).abs().max().item())
+        log("reference_train", two_pass_warp=two_pass_warp,
+            losses_cuda=losses["cuda"], losses_cpu=losses["cpu"],
+            bn_stats=len(stats["cpu"]), bn_max_abs_err=worst,
+            launches=launched)
+
+
 def phase_main_path(rows: list[dict]) -> None:
     """The ESTM streaming step at the flagship width through the kernels:
     every kernel's count is set to 0 just before and read just after."""
@@ -467,9 +707,8 @@ def phase_main_path(rows: list[dict]) -> None:
         raise AssertionError("depths not finite or outside [0, depth_max]")
     # one plane-sweep launch per step; one frustum launch per EST step
     # (every step after the first window)
-    if launches != {"plane_sweep_warp": steps,
-                    "frustum_warp_exact_z": steps - 1,
-                    "frustum_warp_plane_mix": 0, "epipolar_attention": 0}:
+    if launches != {**dict.fromkeys(KERNELS, 0), "plane_sweep_warp": steps,
+                    "frustum_warp_exact_z": steps - 1}:
         raise AssertionError(f"kernel launches {launches}")
     steady = res["times"][2:]
     ms = 1e3 * statistics.median(steady)
@@ -494,15 +733,14 @@ def phase_joint_path(rows: list[dict]) -> None:
     fused = est_windows * targets
     runs = {
         "joint": (dict(), {"plane_sweep_warp": JOINT_WINDOWS,
-                           "frustum_warp_exact_z": fused,
-                           "frustum_warp_plane_mix": 0,
-                           "epipolar_attention": 0}),
+                           "frustum_warp_exact_z": fused}),
         "joint_plane_mix_fused_attention": (
             dict(frustum_mode="plane_mix", fused_attention=True),
-            {"plane_sweep_warp": JOINT_WINDOWS, "frustum_warp_exact_z": 0,
+            {"plane_sweep_warp": JOINT_WINDOWS,
              "frustum_warp_plane_mix": fused, "epipolar_attention": fused}),
     }
     for path, (options, expected) in runs.items():
+        expected = {**dict.fromkeys(KERNELS, 0), **expected}
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         res = eval_joint.run_synthetic(
@@ -535,15 +773,82 @@ def phase_joint_path(rows: list[dict]) -> None:
             row["launches_by_path"][path] = launches[row["name"]]
 
 
+def phase_train_path(rows: list[dict]) -> None:
+    """The training step at the flagship width through tools/train.py's own
+    loop (`run`): 256x320, D = 64, ResNet-50, 5-frame windows, batch 1, EST
+    on, 1 warm-up step and 3 timed ones, once with the default plane sweep
+    (kernel 1) and once through the two-pass resample (kernel 3). Every
+    kernel's count is set to 0 just before each run and read just after."""
+    moved_prefixes = ("matchingFeature", "semanticFeature", "CostRegNet",
+                      "pre0")
+    targets = TRAIN_FRAMES - 2
+    for path, flags in (("train", []),
+                        ("train_two_pass_warp", ["--two-pass-warp"])):
+        with tempfile.TemporaryDirectory() as logdir:
+            args = train_tool.parse_args([
+                "--synthetic", "--steps", str(TRAIN_STEPS), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--ndepths",
+                str(NDEPTHS), "--depth-min", str(DEPTH_MIN), "--depth-max",
+                str(DEPTH_MAX), "--resnet", "50", "--n-frames",
+                str(TRAIN_FRAMES), "--batch-per-device", "1",
+                "--summary-freq", "1", "--seed", "0", "--logdir", logdir,
+                *flags])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            res = train_tool.run(args)
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+        records = res["records"]
+        if [r["step"] for r in records] != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"{path}: steps {records}")
+        for r in records:
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                raise AssertionError(f"{path}: step {r['step']} loss "
+                                     f"{r['loss']} grad_norm "
+                                     f"{r['grad_norm']}")
+        # per step: one sweep of the window's 6 pairs, and one frustum warp
+        # per target of the sequential EST fusion
+        sweep = "two_pass_resample" if flags else "plane_sweep_warp"
+        expected = {**dict.fromkeys(KERNELS, 0), sweep: TRAIN_STEPS,
+                    "frustum_warp_exact_z": targets * TRAIN_STEPS}
+        if launches != expected:
+            raise AssertionError(f"{path}: kernel launches {launches}, "
+                                 f"expected {expected}")
+        start = train_tool.build(args, "cpu")[0].model.state_dict()
+        final = res["state"].model.state_dict()
+        for prefix in moved_prefixes:
+            if not any(not torch.equal(v.cpu(), start[k])
+                       for k, v in final.items()
+                       if k.startswith(prefix) and k.endswith("weight")):
+                raise AssertionError(f"{path}: no weight of {prefix} moved")
+        ms = 1e3 * statistics.median(r["seconds"] for r in records[1:])
+        log("train_path", path=path, steps=TRAIN_STEPS, remat=False,
+            launches=launches,
+            launches_per_step={k: n // TRAIN_STEPS
+                               for k, n in launches.items()},
+            ms_per_step=ms, times_ms=[1e3 * r["seconds"] for r in records],
+            losses=[r["loss"] for r in records],
+            grad_norms=[r["grad_norm"] for r in records],
+            max_memory_allocated=peak)
+        for row in rows:
+            row["launches_by_path"][path] = launches[row["name"]]
+        del res
+
+
 def main() -> None:
     dev_info = phase_device()
     phase_build()
     rows = phase_kernels()
+    phase_gradients(rows)
     phase_geometry()
     phase_reference()
     phase_reference_joint()
+    phase_reference_train()
     phase_main_path(rows)
     phase_joint_path(rows)
+    phase_train_path(rows)
     for row in rows:  # every kernel ran on a main path
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"] > 0:

@@ -29,12 +29,48 @@ class ModelConfig:
     # targets fused in the reference's order, each seeing the already fused
     # values of earlier targets; False fuses all targets in one batch
     sequential_fusion: bool = True
-    # EST attention through the CUDA kernel (ops/cuda/epipolar_attention.py)
+    # EST attention through the CUDA kernel (ops/cuda/epipolar_attention.py);
+    # forward-only, so not for training
     use_fused_attention: bool = False
+    # plane sweep through the fused two-pass resample (ops/cuda/two_pass.py)
+    # instead of the exact bilinear sample: the counterpart of the JAX
+    # package's pallas_warp=True under ESTDEPTH_FUSED_WARP=1
+    two_pass_warp: bool = False
+    # training only: the cost-volume pre-stack once per (target, neighbour)
+    # pair and stereo_head1 once per target, in the reference's loop order,
+    # so BatchNorm takes its batch statistics per call as the reference does
+    sequential_cost_bn: bool = False
 
     @property
     def depth_interval(self) -> float:
         return (self.depth_max - self.depth_min) / (self.ndepths - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings (reference train_hybrid.py:80-97). The recipe
+    card of the defaults; the train tool takes the same values as flags."""
+
+    lr: float = 4e-5
+    weight_decay: float = 4e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epochs: int = 7
+    lr_decay_epochs: tuple[int, ...] = (2, 4, 6)
+    lr_decay_factor: float = 0.5
+    warmup_steps: int = 500
+    warmup_factor: float = 1.0 / 3.0
+    # grad clip 10 for epochs < 3, then 1 (train_hybrid.py:94-97)
+    clip_early: float = 10.0
+    clip_late: float = 1.0
+    clip_switch_epoch: int = 3
+    batch_per_device: int = 1
+    grad_accum: int = 1  # microbatches per step (trainer.make_train_step)
+    remat: bool = False  # recompute the forward during the backward
+    seed: int = 1
+    loss_scale_weight: float = 0.8  # per-scale weight 0.8**scale
+    summary_freq: int = 10
+    ckpt_steps: int = 5000
 
 
 @dataclasses.dataclass(frozen=True)

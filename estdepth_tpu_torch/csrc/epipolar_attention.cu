@@ -1,4 +1,4 @@
-// Per-voxel epipolar attention (kernel 4 of the port), CUDA C++ for sm_90a.
+// Per-voxel epipolar attention (kernel 5 of the port), CUDA C++ for sm_90a.
 //
 // Replaces: estdepth_tpu/ops/pallas/epipolar_attention.py:epipolar_attention
 // (_kernel).

@@ -1,4 +1,4 @@
-// Plane-mix frustum warp (kernel 3 of the port), CUDA C++ for sm_90a.
+// Plane-mix frustum warp (kernel 4 of the port), CUDA C++ for sm_90a.
 //
 // Replaces: estdepth_tpu/ops/pallas/plane_warp.py:frustum_warp_pallas
 // (_frustum_impl: the lane-gather z-mix kernel _make_zmix_kernel, a

@@ -64,8 +64,10 @@ class DepthHybridDecoder(nn.Module):
                  est_transformer: bool = True, base_channels: int = 32,
                  frustum_mode: str = "plane_mix_exact_z",
                  sequential_fusion: bool = True,
-                 use_fused_attention: bool = False):
+                 use_fused_attention: bool = False,
+                 sequential_head_bn: bool = False):
         super().__init__()
+        self.sequential_head_bn = sequential_head_bn
         self.ndepths = ndepths
         self.depth_max = depth_max
         self.frustum_mode = frustum_mode
@@ -243,9 +245,18 @@ class DepthHybridDecoder(nn.Module):
             fused = fusion(
                 key_w, value_w, target_poses, cam_intr, depth_values,
                 depth_min, depth_interval, memory)  # [B, num, D, H, W, C]
-            fused_logits = _head_logits(
-                self.stereo_head1,
-                fused.reshape(bn, d, h, w, -1).permute(0, 4, 1, 2, 3))
+            if self.sequential_head_bn and self.training:
+                # the reference's loop order: one head call per target, each
+                # with its own BN batch statistics and running-stat update
+                # (hybrid_depth_decoder.py:229,256)
+                fused_logits = torch.stack(
+                    [_head_logits(self.stereo_head1,
+                                  fused[:, i].permute(0, 4, 1, 2, 3))
+                     for i in range(num)], 1).reshape(bn, d, h, w)
+            else:
+                fused_logits = _head_logits(
+                    self.stereo_head1,
+                    fused.reshape(bn, d, h, w, -1).permute(0, 4, 1, 2, 3))
             state_value = fused[:, -1]
         else:
             fused_logits = _head_logits(self.stereo_head1, value)

@@ -30,7 +30,7 @@ def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
 
 class EpipolarTransformer(nn.Module):
     """channels: key/value channel count (reference base_channels // 2).
-    use_fused_attention: run the attention stage through kernel 4."""
+    use_fused_attention: run the attention stage through kernel 5."""
 
     def __init__(self, channels: int = 16, use_fused_attention: bool = False):
         super().__init__()

@@ -1,4 +1,4 @@
-"""DepthNetHybrid: the hybrid MVS depth network, eval mode (port of
+"""DepthNetHybrid: the hybrid MVS depth network (port of
 estdepth_tpu/models/estdepth.py; reference model_hybrid.py:14-184).
 
 Given V >= 3 frames with poses and intrinsics it predicts full-resolution
@@ -8,12 +8,20 @@ neighbour) plane-sweep warps run as one folded warp and one folded conv
 stack. The module tree carries the reference's names (`matchingFeature`,
 `semanticFeature.encoder`, `CostRegNet`, `pre0/1/2`), so its state_dict is
 a reference checkpoint and the other way round.
+
+The module rests in eval mode (BatchNorm on its running statistics).
+`forward(..., train=True)` switches it to train mode for that call, as the
+JAX module's `train` argument does: BatchNorm normalizes with the batch's
+statistics and updates the running ones, and EST fusion runs by default.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from estdepth_tpu_torch.config import ModelConfig
 from estdepth_tpu_torch.models.decoder import DepthHybridDecoder
@@ -49,6 +57,7 @@ class DepthNetHybrid(nn.Module):
             frustum_mode=cfg.frustum_mode,
             sequential_fusion=cfg.sequential_fusion,
             use_fused_attention=cfg.use_fused_attention,
+            sequential_head_bn=cfg.sequential_cost_bn,
         )
         # cost-volume pair aggregation (model_hybrid.py:58-60)
         self.pre0 = conv_bn(64, 32, 1, 1, pad=0, dims=3)
@@ -57,6 +66,19 @@ class DepthNetHybrid(nn.Module):
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
 
+    @contextlib.contextmanager
+    def _mode(self, train: bool):
+        """Train or eval mode inside the block, the caller's mode after."""
+        was = self.training
+        if was == train:  # nothing to walk the module tree for
+            yield
+            return
+        self.train(train)
+        try:
+            yield
+        finally:
+            self.train(was)
+
     def depth_candidates(self, batch: int, device=None) -> torch.Tensor:
         """[B, D] uniform depth hypotheses (model_hybrid.py:29-33)."""
         c = self.cfg
@@ -64,12 +86,17 @@ class DepthNetHybrid(nn.Module):
                  * c.depth_interval + c.depth_min)
         return cands[None].expand(batch, -1)
 
-    def compute_matching(self, imgs: torch.Tensor) -> torch.Tensor:
-        """Stride-4 matching features [N, H/4, W/4, 32] (channels-last) of
-        [N, H, W, 3] frames in 0..255. Eval-mode BN makes them per-frame
-        deterministic, so streaming runners cache them across windows."""
+    def _matching(self, imgs: torch.Tensor) -> torch.Tensor:
         x = _normalize_images(imgs).permute(0, 3, 1, 2)
         return self.matchingFeature(x).permute(0, 2, 3, 1)
+
+    def compute_matching(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Stride-4 matching features [N, H/4, W/4, 32] (channels-last) of
+        [N, H, W, 3] frames in 0..255, always in eval mode: eval-mode BN
+        makes them per-frame deterministic, so streaming runners cache
+        them across windows."""
+        with self._mode(False):
+            return self._matching(imgs)
 
     def _cost_volumes(self, feats, cam_poses, cam_intr_s1, depth_values):
         """All targets' cost volumes (model_hybrid.py:62-102,152-164):
@@ -94,51 +121,90 @@ class DepthNetHybrid(nn.Module):
         warped = plane_sweep_warp(
             src_feats.reshape(bp, h, w, c).contiguous(),
             src_proj.reshape(bp, 4, 4), ref_proj.reshape(bp, 4, 4),
-            dv.reshape(bp, d),
+            dv.reshape(bp, d), two_pass=self.cfg.two_pass_warp,
         )  # [BP, D, h, w, C]
         # ref volume expanded over planes (model_hybrid.py:76)
         ref = feats[:, 1:1 + t].permute(0, 1, 4, 2, 3)  # [B, T, C, h, w]
         ref = ref[None, :, :, :, None].expand(2, b, t, c, d, h, w)
         x = torch.cat([ref.reshape(bp, c, d, h, w),
                        warped.permute(0, 4, 1, 2, 3)], 1)  # 64 channels
+        if self.cfg.sequential_cost_bn and self.training:
+            # the reference's loop order (t0, L), (t0, R), (t1, L), ...: one
+            # pre-stack call per pair, each with its own BN batch statistics
+            # and its own update of the running ones
+            ys = []
+            for ti in range(t):
+                for pi in range(2):
+                    rows = pi * b * t + torch.arange(b, device=x.device) * t
+                    yi = self.pre0(x[rows + ti])
+                    ys.append(yi + self.pre2(self.pre1(yi)))
+            y = torch.stack(ys, 0).reshape(t, 2, b, -1, d, h, w)
+            return y.mean(1).transpose(0, 1)  # [B, T, 32, D, h, w]
         x = self.pre0(x)
         x = x + self.pre2(self.pre1(x))
         # mean over the 2 neighbours (model_hybrid.py:97-99)
         return x.reshape(2, b, t, -1, d, h, w).mean(0)
 
+    def _after_features(self, train, use_est, memory, cam_poses, cam_intr,
+                        matching_feats, *semantic):
+        """Everything after the two encoders: cost volumes and decoder."""
+        with self._mode(train):
+            b, v = cam_poses.shape[:2]
+            t = v - 2
+            cam_intr_s1 = scale_intrinsics(cam_intr, 0.25)
+            depth_values = self.depth_candidates(b, cam_poses.device)
+            cost_volumes = self._cost_volumes(matching_feats, cam_poses,
+                                              cam_intr_s1, depth_values)
+            outputs, key, value, pose = self.CostRegNet(
+                cost_volumes, list(semantic), cam_poses[:, 1:1 + t],
+                cam_intr_s1, depth_values, self.cfg.depth_min,
+                self.cfg.depth_interval, memory=memory, use_est=use_est,
+            )
+        return outputs, (key, value, pose)
+
     def forward(self, imgs: torch.Tensor, cam_poses: torch.Tensor,
                 cam_intr: torch.Tensor, memory: ESTMemory | None = None,
-                use_est: bool | None = None,
-                matching_feats: torch.Tensor | None = None):
+                use_est: bool | None = None, train: bool = False,
+                matching_feats: torch.Tensor | None = None,
+                remat_after_features: bool = False):
         """imgs [B, V, H, W, 3] in 0..255; cam_poses [B, V, 4, 4]
         cam-to-world; cam_intr [B, 3, 3] at full resolution.
 
         Returns (outputs, (key, value, pose)): outputs "depth"
         [B, T, 4, H, W], "init_prob" and "fused_prob" [B, T, H, W]; the
-        state is the last target's for ESTMemory.push. `use_est` defaults
-        to "a memory was given" (the reference's eval flag,
-        hybrid_depth_decoder.py:423). `matching_feats` [B, V, H/4, W/4, C]
-        from compute_matching skips the matching encoder."""
+        state is the last target's for ESTMemory.push, detached. `use_est`
+        defaults to the reference's flag logic
+        (hybrid_depth_decoder.py:423): EST fusion runs when training or
+        when a memory is given. `train` runs the call in train mode
+        (module doc). `matching_feats` [B, V, H/4, W/4, C] from
+        compute_matching skips the matching encoder.
+        `remat_after_features` keeps only the encoders' outputs for the
+        backward and recomputes the cost volumes and the decoder there
+        (torch.utils.checkpoint; the JAX trainer's "save_features")."""
         b, v, h_img, w_img, _ = imgs.shape
         if v <= 2:
             raise ValueError("need at least 3 views (model_hybrid.py:123)")
         t = v - 2
         if use_est is None:
-            use_est = self.cfg.est_transformer and memory is not None
-        x = _normalize_images(imgs)
-        if matching_feats is None:
-            matching_feats = self.compute_matching(
-                imgs.reshape(b * v, h_img, w_img, 3)
-            ).reshape(b, v, h_img // 4, w_img // 4, -1)
-        semantic = self.semanticFeature(
-            x[:, 1:1 + t].reshape(b * t, h_img, w_img, 3).permute(0, 3, 1, 2))
-        cam_intr_s1 = scale_intrinsics(cam_intr, 0.25)
-        depth_values = self.depth_candidates(b, imgs.device)
-        cost_volumes = self._cost_volumes(matching_feats, cam_poses,
-                                          cam_intr_s1, depth_values)
-        outputs, key, value, pose = self.CostRegNet(
-            cost_volumes, semantic, cam_poses[:, 1:1 + t], cam_intr_s1,
-            depth_values, self.cfg.depth_min, self.cfg.depth_interval,
-            memory=memory, use_est=use_est,
-        )
-        return outputs, (key, value, pose)
+            use_est = self.cfg.est_transformer and (train
+                                                    or memory is not None)
+        if train and use_est and self.cfg.use_fused_attention:
+            raise ValueError(
+                "use_fused_attention cannot train: the attention kernel is "
+                "forward-only (no gradient, as the TPU kernel); train with "
+                "use_fused_attention=False")
+        with self._mode(train):
+            x = _normalize_images(imgs)
+            if matching_feats is None:
+                matching_feats = self._matching(
+                    imgs.reshape(b * v, h_img, w_img, 3)
+                ).reshape(b, v, h_img // 4, w_img // 4, -1)
+            semantic = self.semanticFeature(
+                x[:, 1:1 + t].reshape(b * t, h_img, w_img, 3)
+                .permute(0, 3, 1, 2))
+        rest = (train, use_est, memory, cam_poses, cam_intr, matching_feats,
+                *semantic)
+        if remat_after_features:
+            return checkpoint(self._after_features, *rest,
+                              use_reentrant=False)
+        return self._after_features(*rest)

@@ -4,9 +4,11 @@ estdepth_tpu/models/layers.py).
 Modules here are NCHW / NCDHW. `conv_bn` is the reference's convbn
 (layers_op.py:10-39): an `nn.Sequential(conv, bn)` so that state_dict names
 are `<name>.0.weight` and `<name>.1.*`, the names
-estdepth_tpu/utils/convert.py:export_state_dict emits. The model is
-eval-only in this port: BatchNorm normalizes with its running statistics
-(eps 1e-5).
+estdepth_tpu/utils/convert.py:export_state_dict emits. BatchNorm is
+`nn.BatchNorm2d/3d` (eps 1e-5, momentum 0.1), whose train mode is the JAX
+package's TorchBatchNorm: the biased batch variance normalizes, the
+unbiased one updates `running_var`. In eval mode (the model's resting
+state) it normalizes with the running statistics.
 
 The JAX package's TPU re-expressions of the 3D conv (Decomp3DConv,
 PackedConv3D, conv3d_as2d) bind the same parameters as a plain conv3d and

@@ -136,7 +136,7 @@ class Kernel:
 
 
 def _require_basics(t: torch.Tensor, name: str, shape,
-                    device: torch.device) -> None:
+                    device: torch.device, allow_grad: bool = False) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -144,15 +144,18 @@ def _require_basics(t: torch.Tensor, name: str, shape,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if t.requires_grad:
-        raise ValueError(f"{name}: requires grad; the kernels are "
-                         f"forward-only (run under torch.inference_mode())")
+    if t.requires_grad and not allow_grad:
+        raise ValueError(f"{name}: requires grad; the kernel has no "
+                         f"gradient for this argument (detach it, or run "
+                         f"under torch.inference_mode())")
 
 
-def require(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
+def require(t: torch.Tensor, name: str, shape, device: torch.device,
+            allow_grad: bool = False) -> None:
     """Raise unless t is a contiguous float32 tensor of `shape` on `device`:
-    the kernels take nothing else."""
-    _require_basics(t, name, shape, device)
+    the kernels take nothing else. Only the sampled volume of a warp may
+    require grad (`allow_grad`): `sample_with_plain_grad` gives it one."""
+    _require_basics(t, name, shape, device, allow_grad)
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
@@ -190,3 +193,38 @@ def require_voxel_rows(t: torch.Tensor, name: str, shape,
                          f"strides {tuple(strides)}: not 16-byte aligned "
                          f"rows")
     return lead_strides, pitch
+
+
+class _PlainGrad(torch.autograd.Function):
+    """forward: `launch(volume, *coords)`; backward: the gradient of
+    `plain(volume, *coords)` with respect to `volume`, `None` for the rest."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, name, volume, *coords):
+        ctx.plain, ctx.name = plain, name
+        ctx.save_for_backward(volume, *coords)
+        return launch(volume, *(c.detach() for c in coords))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        volume, *coords = ctx.saved_tensors
+        with torch.autograd.profiler.record_function(
+                f"estdepth::{ctx.name}_backward"), torch.enable_grad():
+            leaf = volume.detach().requires_grad_()
+            out = ctx.plain(leaf, *(c.detach() for c in coords))
+            (grad,) = torch.autograd.grad(out, leaf, grad_out.contiguous())
+        return (None, None, None, grad) + (None,) * len(coords)
+
+
+def sample_with_plain_grad(launch, plain, name: str, volume: torch.Tensor,
+                           *coords: torch.Tensor) -> torch.Tensor:
+    """`launch(volume, *coords)` with the gradient the JAX package's
+    `custom_vjp`s give its TPU kernels: the kernel is forward-only, and the
+    backward is autograd of the plain version `plain(volume, *coords)` with
+    respect to the sampled volume at the same coordinates. The coordinate
+    tensors get no gradient (the reference computes its sampling grids
+    under `torch.no_grad()`). Without a tensor that requires grad this is
+    `launch` itself."""
+    if not (torch.is_grad_enabled() and volume.requires_grad):
+        return launch(volume, *(c.detach() for c in coords))
+    return _PlainGrad.apply(launch, plain, name, volume, *coords)

@@ -1,4 +1,4 @@
-"""Kernel 4: the per-voxel epipolar attention, csrc/epipolar_attention.cu.
+"""Kernel 5: the per-voxel epipolar attention, csrc/epipolar_attention.cu.
 
 Replaces estdepth_tpu/ops/pallas/epipolar_attention.py:epipolar_attention.
 On CUDA tensors `epipolar_attention` launches the kernel; on CPU tensors it
@@ -40,7 +40,7 @@ def epipolar_attention_plain(target_key: torch.Tensor,
     valid [N, S] bool -> [S, ..., C]. Per voxel: the correlation over C, a
     softmax over the N neighbours masked by `valid`, the weighted sum of
     the values divided by the number of valid neighbours (at least 1);
-    zero where no neighbour is valid. Plain version of kernel 4."""
+    zero where no neighbour is valid. Plain version of kernel 5."""
     corr = (target_key[None] * warped_keys).sum(-1)  # [N, S, ...]
     vmask = valid.reshape(valid.shape + (1,) * (corr.dim() - 2))
     logits = torch.where(vmask, corr.float(),

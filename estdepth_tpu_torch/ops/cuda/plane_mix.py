@@ -1,4 +1,4 @@
-"""Kernel 3: the plane-mix frustum resample, csrc/frustum_warp_plane_mix.cu.
+"""Kernel 4: the plane-mix frustum resample, csrc/frustum_warp_plane_mix.cu.
 
 Replaces estdepth_tpu/ops/pallas/plane_warp.py:frustum_warp_pallas (the
 lane-gather z-mix kernel plus the two-pass resample). On a CUDA tensor
@@ -10,6 +10,11 @@ the exact (x, y). The zi field is computed in PyTorch by the caller
 
 The TPU function's bf16 transport (channel pairs packed as int32) has no
 counterpart; the wrapper raises on bf16 volumes.
+
+Gradient, as the JAX package's `custom_vjp` (_frustum_diff_bwd): the kernel
+is forward-only; the backward is autograd of the plain version with respect
+to `volume` at the same coordinates. `zi`, `x` and `y` get no gradient on
+either device.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ def z_mix(volume: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
 def plane_mix_resample_plain(volume: torch.Tensor, zi: torch.Tensor,
                              x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
-    -> [B, D, H, W, C]. Plain version of kernel 3."""
+    -> [B, D, H, W, C]. Plain version of kernel 4."""
     b, d, h, w, c = volume.shape
     mixed = z_mix(volume, zi).reshape(b * d, h, w, c)
     out = bilinear_sample(mixed, x.reshape(b * d, h * w),
@@ -69,7 +74,8 @@ def plane_mix_resample(volume: torch.Tensor, zi: torch.Tensor,
     -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain version on
     CPU tensors."""
     if volume.device.type == "cpu":
-        return plane_mix_resample_plain(volume, zi, x, y)
+        return plane_mix_resample_plain(volume, zi.detach(), x.detach(),
+                                        y.detach())
     if volume.device.type != "cuda":
         raise ValueError(f"plane_mix_resample: unsupported device "
                          f"{volume.device}")
@@ -77,8 +83,16 @@ def plane_mix_resample(volume: torch.Tensor, zi: torch.Tensor,
     if c % 4 or d < 2:
         raise ValueError(f"plane_mix_resample: volume {tuple(volume.shape)} "
                          f"needs C % 4 == 0 and D >= 2")
+    return build.sample_with_plain_grad(
+        _launch, plane_mix_resample_plain, "frustum_warp_plane_mix", volume,
+        zi, x, y)
+
+
+def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    b, d, h, w, c = volume.shape
     dev = volume.device
-    build.require(volume, "volume", (b, d, h, w, c), dev)
+    build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require(zi, "zi", (b, d, h * w), dev)
     build.require(x, "x", (b, d * h * w), dev)
     build.require(y, "y", (b, d * h * w), dev)

@@ -3,6 +3,11 @@
 Replaces estdepth_tpu/ops/pallas/plane_warp.py:plane_sweep_warp_pallas.
 On a CUDA tensor `plane_sweep_sample` launches the kernel; on a CPU tensor
 it runs the plain PyTorch version (ops/sampling.bilinear_sample).
+
+Gradient, as the JAX package's `custom_vjp` (_psweep_bwd): the kernel is
+forward-only; the backward is autograd of the plain version with respect
+to `src` at the same coordinates. `x` and `y` get no gradient on either
+device (the reference computes its grid under `torch.no_grad()`).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ def plane_sweep_sample(src: torch.Tensor, x: torch.Tensor,
     """src [B, H, W, C] sampled at x, y [B, D*H*W] -> [B, D, H, W, C]:
     the kernel on CUDA tensors, the plain version on CPU tensors."""
     if src.device.type == "cpu":
-        return plane_sweep_sample_plain(src, x, y)
+        return plane_sweep_sample_plain(src, x.detach(), y.detach())
     if src.device.type != "cuda":
         raise ValueError(f"plane_sweep_sample: unsupported device "
                          f"{src.device}")
@@ -40,8 +45,15 @@ def plane_sweep_sample(src: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"plane_sweep_sample: src {tuple(src.shape)} "
                          f"(C % 4 == 0) with x {tuple(x.shape)} "
                          f"([B, D*H*W])")
+    return build.sample_with_plain_grad(
+        _launch, plane_sweep_sample_plain, "plane_sweep_warp", src, x, y)
+
+
+def _launch(src: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = src.shape
     d = x.shape[1] // (h * w)
-    build.require(src, "src", (b, h, w, c), src.device)
+    build.require(src, "src", (b, h, w, c), src.device, allow_grad=True)
     build.require(x, "x", (b, d * h * w), src.device)
     build.require(y, "y", (b, d * h * w), src.device)
     out = torch.empty((b, d, h, w, c), dtype=src.dtype, device=src.device)

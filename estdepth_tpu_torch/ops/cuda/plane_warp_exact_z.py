@@ -9,6 +9,11 @@ the caller (ops/warp_exact_z.zi_field) and read by both.
 The TPU function's packed bf16 transport of (A, s) has no counterpart: the
 kernel keeps A and s in registers. A bf16 model is not ported yet, and the
 wrapper raises on bf16 volumes.
+
+Gradient, as the JAX package's `custom_vjp` (_frustum_exact_z_bwd): the
+kernel is forward-only; the backward is autograd of the plain version with
+respect to `volume` at the same coordinates. `zi`, `x`, `y` and `z` get no
+gradient on either device.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
     [B, D*H*W] -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
     if volume.device.type == "cpu":
-        return resample_exact_z(volume, zi, x, y, z, depth_min,
-                                depth_interval)
+        return resample_exact_z(volume, zi.detach(), x.detach(), y.detach(),
+                                z.detach(), depth_min, depth_interval)
     if volume.device.type != "cuda":
         raise ValueError(f"exact_z_resample: unsupported device "
                          f"{volume.device}")
@@ -44,8 +49,23 @@ def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
     if c % 4 or d < 2:
         raise ValueError(f"exact_z_resample: volume {tuple(volume.shape)} "
                          f"needs C % 4 == 0 and D >= 2")
+
+    def plain(vol, *coords):
+        return resample_exact_z(vol, *coords, depth_min, depth_interval)
+
+    def launch(vol, *coords):
+        return _launch(vol, *coords, depth_min, depth_interval)
+
+    return build.sample_with_plain_grad(launch, plain, "frustum_warp_exact_z",
+                                        volume, zi, x, y, z)
+
+
+def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor, z: torch.Tensor, depth_min: float,
+            depth_interval: float) -> torch.Tensor:
+    b, d, h, w, c = volume.shape
     dev = volume.device
-    build.require(volume, "volume", (b, d, h, w, c), dev)
+    build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require(zi, "zi", (b, d, h * w), dev)
     for name, t in (("x", x), ("y", y), ("z", z)):
         build.require(t, name, (b, d * h * w), dev)

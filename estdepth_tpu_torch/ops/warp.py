@@ -12,7 +12,13 @@ The coordinate math is PyTorch. The plane-sweep sample and the two
 plane_mix forms go through the kernel wrappers in ops/cuda/, which launch
 the CUDA kernels on CUDA tensors and run their plain versions on CPU
 tensors; there is no separate mode string for the kernel route. "exact"
-is plain PyTorch on either device.
+is plain PyTorch on either device. `plane_sweep_warp(two_pass=True)`
+samples through the fused two-pass resample (ops/cuda/two_pass.py), the
+counterpart of the JAX package's `backend="pallas"` under
+ESTDEPTH_FUSED_WARP=1, instead of the exact bilinear sample.
+
+Gradients flow to the sampled features or volume only: the wrappers give
+the coordinates none, as the JAX package's `custom_vjp`s do.
 """
 
 from __future__ import annotations
@@ -23,17 +29,22 @@ from estdepth_tpu_torch.ops import geometry
 from estdepth_tpu_torch.ops.cuda.plane_mix import plane_mix_resample
 from estdepth_tpu_torch.ops.cuda.plane_warp import plane_sweep_sample
 from estdepth_tpu_torch.ops.cuda.plane_warp_exact_z import exact_z_resample
+from estdepth_tpu_torch.ops.cuda.two_pass import (
+    line_coeffs, two_pass_resample,
+)
 from estdepth_tpu_torch.ops.sampling import trilinear_sample
 from estdepth_tpu_torch.ops.warp_exact_z import zi_field
 
 FRUSTUM_MODES = ("exact", "plane_mix", "plane_mix_exact_z")
 
 
-def plane_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
-                       depth_values: torch.Tensor, height: int, width: int):
-    """Source pixel coordinates x, y [B, D*H*W] of every (plane, ref pixel):
-    rot/trans of src_proj @ inv(ref_proj) (homo_utils.py:469-471) and the
-    projective division with +1e-8 (:483)."""
+def _plane_sweep_geometry(src_proj: torch.Tensor, ref_proj: torch.Tensor,
+                          depth_values: torch.Tensor, height: int,
+                          width: int):
+    """(rot, trans, x, y): rot [B, 3, 3] / trans [B, 3] of
+    src_proj @ inv(ref_proj) (homo_utils.py:469-471) and the source pixel
+    coordinates x, y [B, D*H*W] of every (plane, ref pixel), the projective
+    division with +1e-8 (:483)."""
     b, d = depth_values.shape
     rot, trans = geometry.relative_projection(src_proj, ref_proj)
     grid = geometry.pixel_grid(height, width, device=rot.device)
@@ -43,18 +54,46 @@ def plane_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     zb = pts[:, 2] + 1e-8
     x = (pts[:, 0] / zb).reshape(b, -1)
     y = (pts[:, 1] / zb).reshape(b, -1)
-    return x, y
+    return rot, trans, x, y
+
+
+def plane_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
+                       depth_values: torch.Tensor, height: int, width: int):
+    """Source pixel coordinates x, y [B, D*H*W] of every (plane, ref
+    pixel)."""
+    return _plane_sweep_geometry(src_proj, ref_proj, depth_values, height,
+                                 width)[2:]
+
+
+def plane_sweep_line_coeffs(rot: torch.Tensor, trans: torch.Tensor,
+                            depth_values: torch.Tensor,
+                            width: int) -> torch.Tensor:
+    """Line coefficients [B*D, 2, W] of the D plane homographies
+    H_d = d * rot + trans e3^T of each map (homo_utils.py:469-483)."""
+    hmat = depth_values[:, :, None, None].float() * rot.float()[:, None]
+    hmat = torch.cat([hmat[..., :2],
+                      hmat[..., 2:] + trans.float()[:, None, :, None]], -1)
+    return line_coeffs(hmat.reshape(-1, 3, 3), width)
 
 
 def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
-                     ref_proj: torch.Tensor,
-                     depth_values: torch.Tensor) -> torch.Tensor:
+                     ref_proj: torch.Tensor, depth_values: torch.Tensor,
+                     two_pass: bool = False) -> torch.Tensor:
     """Warp src features [B, H, W, C] over the D fronto-parallel depth
     planes [B, D] of the ref camera -> [B, D, H, W, C]; out-of-view samples
-    are 0. src_proj / ref_proj: [B, 4, 4] (geometry.camera_projection)."""
-    _, h, w, _ = src_feat.shape
-    x, y = plane_sweep_coords(src_proj, ref_proj, depth_values, h, w)
-    return plane_sweep_sample(src_feat, x, y)
+    are 0. src_proj / ref_proj: [B, 4, 4] (geometry.camera_projection).
+    `two_pass` samples through the fused two-pass resample (kernel 3)
+    instead of the exact bilinear sample (kernel 1)."""
+    b, h, w, c = src_feat.shape
+    d = depth_values.shape[1]
+    rot, trans, x, y = _plane_sweep_geometry(src_proj, ref_proj,
+                                             depth_values, h, w)
+    if not two_pass:
+        return plane_sweep_sample(src_feat, x, y)
+    ab = plane_sweep_line_coeffs(rot, trans, depth_values, w)
+    out = two_pass_resample(src_feat, ab, x.reshape(b * d, h * w),
+                            y.reshape(b * d, h * w), planes_per_map=d)
+    return out.reshape(b, d, h, w, c)
 
 
 def frustum_coords(rel_pose: torch.Tensor, cam_intr: torch.Tensor,

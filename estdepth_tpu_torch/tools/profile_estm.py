@@ -1,20 +1,26 @@
 """Where the time of a window step goes, on the CUDA device.
 
-    python -m estdepth_tpu_torch.tools.profile_estm [--protocol estm|joint]
-        [--frames 8] [--no-exact-z | --exact-warp] [--fused-attention]
+    python -m estdepth_tpu_torch.tools.profile_estm
+        [--protocol estm|joint|train] [--frames 8]
+        [--no-exact-z | --exact-warp] [--fused-attention] [--two-pass-warp]
         [--trace DIR]
 
 Runs one synthetic scene at the eval defaults (256x320, D = 64, ResNet-50,
 float32, random weights) through ESTMRunner (lwindow 3, memory 2; a step
 is one frame) or, with --protocol joint, through JointRunner (5-frame
 windows advancing by 3, a 1-entry memory; a step is one window of 3
-targets). Warms up on the first steps, times --frames steady-state steps
+targets), or, with --protocol train, through the training step of
+train/trainer.py on 5-frame windows at batch 1 (a step is one optimizer
+update; the result fetched is the loss). Warms up on the first steps, times --frames steady-state steps
 without the profiler (the median step, and how much of it the host spends
 issuing the step's launches before it waits for the result), then records
 --frames more with torch.profiler. Prints one JSON line: those two times,
 host ms per step under the profiler, device-busy ms per step (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, the share of each kernel group, and the top kernels by device time.
+For a training step it also prints, per warp, the device time of the
+backward (`estdepth::<kernel>_backward` ranges: autograd of the plain
+version, many PyTorch kernels) beside the forward kernel's.
 The profiler adds its own time to every launch: where the step without it
 is shorter than device-busy with it, trust the shares, not the sum.
 --trace writes a Chrome trace there.
@@ -42,20 +48,25 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
+from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
+from estdepth_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 # kernel name -> group, first match wins (cuDNN's BatchNorm and layout
 # kernels before its convolutions)
 GROUPS = [
     ("port: plane_sweep_warp", r"plane_sweep_warp_kernel"),
     ("port: frustum_warp_exact_z", r"frustum_warp_exact_z_kernel"),
+    ("port: two_pass_resample", r"two_pass_resample_kernel"),
     ("port: frustum_warp_plane_mix", r"frustum_warp_plane_mix_kernel"),
     ("port: epipolar_attention", r"epipolar_attention_kernel"),
-    ("batchnorm (cuDNN, eval)", r"bn_fw_inf|batch_norm"),
+    ("batchnorm (cuDNN)", r"bn_fw|bn_bw|batch_norm"),
     ("groupnorm", r"RowwiseMoments|group_norm|GroupNorm"),
     ("layout / copy / cat", r"nhwcToNchw|nchwToNhwc|copy|Memcpy|"
                             r"transpose"),
-    ("conv (cuDNN)", r"conv|cudnn|implicit|xmma|winograd|fft|sm90|sm80"),
+    ("conv (cuDNN)", r"conv|cudnn|implicit|xmma|winograd|fft|sm90|sm80|"
+                     r"wgrad|dgrad|fprop"),
     ("gemm", r"gemm|cutlass|cublas"),
+    ("optimizer (multi-tensor)", r"multi_tensor|adam|foreach"),
     ("gather / index", r"gather|index|scatter"),
     ("reduce / softmax", r"reduce|softmax|Reduce"),
     ("elementwise", r"elementwise|vectorized|unrolled"),
@@ -71,12 +82,15 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--protocol", choices=["estm", "joint"], default="estm")
+    p.add_argument("--protocol", choices=["estm", "joint", "train"],
+                   default="estm")
     p.add_argument("--frames", type=int, default=8,
                    help="steady-state steps recorded")
     p.add_argument("--warmup", type=int, default=4,
                    help="steps run before recording")
     add_model_flags(p)
+    p.add_argument("--two-pass-warp", action="store_true",
+                   help="plane sweep through the fused two-pass resample")
     p.add_argument("--trace", type=str, default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -85,7 +99,8 @@ def main(argv=None) -> None:
     cfg = SyntheticSceneConfig()
     model = DepthNetHybrid(ModelConfig(
         frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
-        use_fused_attention=args.fused_attention))
+        use_fused_attention=args.fused_attention,
+        two_pass_warp=args.two_pass_warp))
     n_steps = args.warmup + 2 * args.frames
     if args.protocol == "estm":
         runner = ESTMRunner(model, cfg.height, cfg.width, device="cuda")
@@ -93,6 +108,19 @@ def main(argv=None) -> None:
 
         def issue(f):
             return runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
+    elif args.protocol == "train":
+        model.to("cuda")
+        optimizer, scheduler = make_optimizer(
+            model.named_parameters(),
+            warmup_multistep_schedule(4e-5, steps_per_epoch=256))
+        step = make_train_step(model, optimizer, scheduler,
+                               model.cfg.depth_min, model.cfg.depth_max)
+        frames = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                   synthetic_window(cfg, 5, wi % 7).items()}
+                  for wi in range(n_steps)]
+
+        def issue(f):
+            return step(f, 10.0)["loss"]
     else:
         runner = JointRunner(model, device="cuda")
         frames = [synthetic_window(cfg, 5, 3 * wi) for wi in range(n_steps)]
@@ -127,10 +155,16 @@ def main(argv=None) -> None:
         wall = time.perf_counter() - t0
     n = args.frames
     kernels = defaultdict(lambda: [0.0, 0])
+    backward = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation:  # a range's span, not a kernel
+                continue
             kernels[e.name][0] += e.device_time_total / 1e3  # ms
             kernels[e.name][1] += 1
+        elif e.name.startswith("estdepth::"):  # a warp's backward range
+            backward[e.name][0] += e.device_time_total / 1e3
+            backward[e.name][1] += 1
     busy = sum(t for t, _ in kernels.values())
     groups = defaultdict(float)
     for name, (t, _) in kernels.items():
@@ -141,6 +175,7 @@ def main(argv=None) -> None:
         "protocol": args.protocol,
         "frustum_mode": model.cfg.frustum_mode,
         "fused_attention": model.cfg.use_fused_attention,
+        "two_pass_warp": model.cfg.two_pass_warp,
         "frames": n,
         "unprofiled_ms_per_frame": step_ms,
         "unprofiled_issue_ms_per_frame": issue_ms,
@@ -151,6 +186,9 @@ def main(argv=None) -> None:
         "kernel_launches_per_frame": sum(c for _, c in kernels.values()) / n,
         "groups_ms_per_frame": {g: t / n for g, t in
                                 sorted(groups.items(), key=lambda kv: -kv[1])},
+        "warp_backward_ms_per_frame": {
+            name: {"ms_per_frame": t / n, "calls_per_frame": c / n}
+            for name, (t, c) in backward.items()},
         "top_kernels": [{"name": name[:120], "ms_per_frame": t / n,
                          "calls_per_frame": c / n}
                         for name, (t, c) in top],

@@ -1,0 +1,147 @@
+"""The training step (port of estdepth_tpu/train/trainer.py; reference
+train_hybrid.py:155-211): forward in train mode, the multi-scale loss,
+backward, staged gradient clipping (train_hybrid.py:94-97,182) and
+Adam-with-L2 (torch Adam + weight_decay, train_hybrid.py:308) on one
+device. The warp kernels run in the forward; their gradients are the plain
+versions' (ops/cuda/build.sample_with_plain_grad).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from estdepth_tpu_torch.train.loss import multi_scale_loss
+
+REMAT_POLICIES = ("nothing", "save_features")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a checkpoint holds: `step` counts the optimizer updates."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def make_optimizer(
+    params: Iterable[tuple[str, nn.Parameter]],
+    schedule: Callable[[int], float], weight_decay: float = 4e-4,
+    betas: tuple[float, float] = (0.9, 0.999),
+    frozen_prefixes: tuple[str, ...] = (),
+):
+    """(optimizer, scheduler) over `params` = `model.named_parameters()`.
+
+    torch Adam(lr, betas, weight_decay) semantics: the L2 term is added to
+    the gradient BEFORE the moment updates (not AdamW), eps 1e-8. The
+    learning rate of update n is schedule(n - 1). `frozen_prefixes` are
+    top-level subtrees that do not train, the reference's
+    --fix_matchingFeature / --fix_semanticFeature (train_hybrid.py:297-306;
+    here "matchingFeature", "semanticFeature"): their parameters get
+    requires_grad=False, so they also stay out of the gradient norm."""
+    trainable = []
+    for name, p in params:
+        if name.split(".")[0] in frozen_prefixes:
+            p.requires_grad_(False)
+        else:
+            trainable.append(p)
+    optimizer = torch.optim.Adam(trainable, lr=1.0, betas=betas, eps=1e-8,
+                                 weight_decay=weight_decay)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, schedule)
+    return optimizer, scheduler
+
+
+def clip_by_global_norm(params: Iterable[nn.Parameter],
+                        max_norm: float) -> torch.Tensor:
+    """Scale every `.grad` in place by min(1, max_norm / norm) and return
+    the norm before clipping (torch clip_grad_norm_ with the clip value
+    given per call)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.clamp(max_norm / norm.clamp(min=1e-12), max=1.0)
+    torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+    return norm
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    scheduler, depth_min: float, depth_max: float,
+                    loss_weight: float = 0.8, remat: bool = False,
+                    grad_accum: int = 1, remat_policy: str = "nothing"):
+    """Returns step(batch, clip_norm) -> scalars (0-d tensors: `loss`,
+    `loss_s`, `delta_s`, `thred_s`, `grad_norm`).
+
+    batch: imgs [B, V, H, W, 3] in 0..255, cam_poses [B, V, 4, 4],
+    cam_intr [B, 3, 3], dmaps and dmasks [B, T, H, W], tensors on the
+    model's device.
+
+    remat recomputes the forward during the backward
+    (torch.utils.checkpoint, non-reentrant) and so launches each forward
+    kernel twice per step: policy "nothing" keeps no activation of the
+    forward, "save_features" keeps the two encoders' outputs and
+    recomputes the cost volumes and the decoder. BatchNorm's running
+    statistics are put back after the backward, so a recomputed forward
+    does not update them a second time. The JAX trainer's "dots" policy
+    (keep matmul and conv outputs) has no counterpart here.
+
+    grad_accum splits the batch into that many microbatches, sums their
+    gradients, divides by the count and averages the scalars; BatchNorm's
+    batch statistics and running-stat updates are per microbatch, as if
+    the microbatches were separate steps."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                         f"{REMAT_POLICIES} (the JAX trainer's 'dots' is "
+                         f"not ported)")
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def forward(mb):
+        def run():
+            return model(mb["imgs"], mb["cam_poses"], mb["cam_intr"],
+                         train=True, remat_after_features=(
+                             remat and remat_policy == "save_features"),
+                         )[0]["depth"]
+
+        if remat and remat_policy == "nothing":
+            return checkpoint(run, use_reentrant=False)
+        return run()
+
+    @torch.enable_grad()  # whatever grad mode the caller is in
+    def accumulate(mb):
+        loss, scalars = multi_scale_loss(
+            forward(mb), mb["dmaps"], mb["dmasks"], depth_min, depth_max,
+            weight=loss_weight)
+        if remat:
+            buffers = [b.clone() for b in model.buffers()]
+        (loss / grad_accum).backward()
+        if remat:
+            with torch.no_grad():
+                for b, kept in zip(model.buffers(), buffers):
+                    b.copy_(kept)
+        return scalars
+
+    def step(batch, clip_norm: float):
+        optimizer.zero_grad(set_to_none=True)
+        if grad_accum > 1:
+            n = batch["imgs"].shape[0]
+            if n % grad_accum:
+                raise ValueError(f"batch {n} not divisible by grad_accum "
+                                 f"{grad_accum}")
+            size = n // grad_accum
+            runs = [accumulate({k: v[i * size:(i + 1) * size]
+                                for k, v in batch.items()})
+                    for i in range(grad_accum)]
+            scalars = {k: torch.stack([r[k] for r in runs]).mean()
+                       for k in runs[0]}
+        else:
+            scalars = accumulate(batch)
+        scalars["grad_norm"] = clip_by_global_norm(params, clip_norm)
+        optimizer.step()
+        scheduler.step()
+        return scalars
+
+    return step

@@ -139,3 +139,11 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
 
     return {k: torch.tensor(np.asarray(v), dtype=torch.float32)
             for k, v in out.items()}
+
+
+def grads_from_jax(grads) -> dict[str, torch.Tensor]:
+    """A JAX parameter-gradient tree (the shape of `variables['params']`)
+    under the port's parameter names and layouts, so `p.grad` can be held
+    against `jax.grad` name by name: the mapping of `state_dict_from_jax`
+    (conv kernels transposed the same way), without batch statistics."""
+    return state_dict_from_jax({"params": grads})

@@ -27,8 +27,12 @@ from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
+    two_pass,
 )
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "estdepth_tpu", "optax", "orbax")
@@ -134,8 +138,12 @@ def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
             torch.empty(3, 1, 2, 4, 5, 16, device="meta"),
             torch.empty(3, 1, 2, 4, 5, 16, device="meta"),
             torch.ones(3, 1, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        two_pass.two_pass_resample(
+            meta, torch.empty(2, 2, 5, device="meta"), coords.reshape(2, 20),
+            coords.reshape(2, 20), 2)
     assert set(build.sources()) == {
-        "plane_sweep_warp", "frustum_warp_exact_z",
+        "plane_sweep_warp", "frustum_warp_exact_z", "two_pass_resample",
         "frustum_warp_plane_mix", "epipolar_attention"}
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", "")
@@ -163,6 +171,9 @@ def test_wrapper_input_checks():
         build.require(ok.t(), "x", (8, 2), dev)
     with pytest.raises(ValueError, match="requires grad"):
         build.require(ok.clone().requires_grad_(), "x", (2, 8), dev)
+    # only a warp's sampled volume may require grad
+    build.require(ok.clone().requires_grad_(), "x", (2, 8), dev,
+                  allow_grad=True)
 
 
 def test_strided_voxel_rows_check():

@@ -18,6 +18,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from estdepth_tpu.data.synthetic import SyntheticSceneConfig, synthetic_stream
 from estdepth_tpu.models import DepthNetHybrid as JaxModel
@@ -26,6 +28,33 @@ from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
 
 H, W, ND, DMIN, DMAX = 64, 96, 8, 0.5, 8.0
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op PyTorch thread while a module's tests run, the
+    process's count after. The suite runs several worker processes side by
+    side; with PyTorch's default of one OpenMP thread per core in each of
+    them the cores are oversubscribed and the port's CPU convolutions slow
+    down thirty-fold (a file that takes 34 s alone took 1063 s). Import the
+    fixture into the module and name it in `pytestmark =
+    pytest.mark.usefixtures("one_torch_thread")`."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def training_test_env(one_torch_thread):
+    """`one_torch_thread` and grad mode on, for a module that runs backward
+    passes: every worker process imports every test file, and
+    tests/test_reference_parity.py turns grad mode off for its process at
+    import."""
+    grad = torch.is_grad_enabled()
+    torch.set_grad_enabled(True)
+    yield
+    torch.set_grad_enabled(grad)
 
 
 def randomize(path, leaf, rng):

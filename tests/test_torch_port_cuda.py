@@ -5,9 +5,13 @@ the fixture, not at import). On a machine with the card:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
 
-The three warp kernels repeat their plain version's arithmetic operation
+The four warp kernels repeat their plain version's arithmetic operation
 by operation (no FMA contraction), so they are held to 1e-6 of the
 output's scale; chip_smoke.py holds them to 1e-5 at the flagship shapes.
+Their gradients on the card are autograd of the plain versions, held to
+autograd of the plain version called directly at 3e-5 of the gradient's
+scale (both scatter-add with float atomics, in an order that changes from
+run to run; chip_smoke.py measures up to 5.3e-6 at the flagship shapes).
 The attention kernel sums its 16 channels and its softmax in another order
 than PyTorch's reductions, so it is held to rtol 1e-5 / atol 1e-6, the
 tolerance the JAX package holds its TPU kernel to (tests/test_pallas.py).
@@ -21,7 +25,7 @@ import torch
 
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
-    epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
+    epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z, two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 
@@ -180,3 +184,165 @@ def test_new_kernels_refuse_what_they_cannot_take(dev):
         epipolar_attention.epipolar_attention(swapped, wk, wv, valid)
     with pytest.raises(ValueError, match="differ"):
         epipolar_attention.epipolar_attention(tk, wk, wv.contiguous(), valid)
+
+
+def _two_pass_inputs(dev, planes_per_map, m=2, h=24, w=32, c=8):
+    """Near-identity homographies with shifts, shear and perspective."""
+    rng = np.random.default_rng(5)
+    p = m * planes_per_map
+    hm = np.tile(np.eye(3, dtype=np.float32), (p, 1, 1))
+    hm += rng.normal(size=(p, 3, 3)).astype(np.float32) * [
+        [0.08, 0.08, 3.0], [0.08, 0.08, 2.0], [1e-3, 1e-3, 0.02]]
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pix = np.stack([u.ravel(), v.ravel(), np.ones(h * w)]).astype(np.float32)
+    q = hm.astype(np.float32) @ pix
+    src = torch.from_numpy(rng.normal(size=(m, h, w, c)).astype(np.float32))
+    hm = torch.from_numpy(hm.astype(np.float32)).to(dev)
+    x = torch.from_numpy((q[:, 0] / q[:, 2]).astype(np.float32)).to(dev)
+    y = torch.from_numpy((q[:, 1] / q[:, 2]).astype(np.float32)).to(dev)
+    return src.to(dev), two_pass.line_coeffs(hm, w), x, y
+
+
+@pytest.mark.parametrize("planes_per_map,c", [(1, 8), (6, 8), (6, 4)])
+def test_two_pass_kernel_matches_plain(dev, planes_per_map, c):
+    """With 8 channels per block (C % 8 == 0) and with 4."""
+    src, ab, x, y = _two_pass_inputs(dev, planes_per_map, c=c)
+    before = two_pass.KERNEL.launches
+    got = two_pass.two_pass_resample(src, ab, x, y, planes_per_map)
+    assert two_pass.KERNEL.launches == before + 1
+    _close(got, two_pass.two_pass_resample_plain(src, ab, x, y,
+                                                 planes_per_map))
+    assert (got == 0).any() and (got != 0).any()
+
+
+def test_two_pass_kernel_refuses_too_much_shared_memory(dev):
+    """A [H, W, 4] f32 pass-1 image over the 227 KB a block may ask for:
+    the launch is refused with the CUDA error, not run."""
+    h, w = 128, 160  # 128 * 160 * 4 floats = 320 KB
+    src = torch.zeros(1, h, w, 4, device=dev)
+    ab = torch.zeros(1, 2, w, device=dev)
+    xy = torch.zeros(1, h * w, device=dev)
+    before = two_pass.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        two_pass.two_pass_resample(src, ab, xy, xy, 1)
+    assert two_pass.KERNEL.launches == before
+    torch.cuda.synchronize()
+    # the card still works, and a size that fits launches
+    ok = two_pass.two_pass_resample(src[:, :24, :32].contiguous(),
+                                    ab[:, :, :32].contiguous(),
+                                    xy[:, :24 * 32], xy[:, :24 * 32], 1)
+    assert ok.shape == (1, 24, 32, 4)
+
+
+def _grad_pair(kernel_fn, plain_fn, volume, coords, seed):
+    """(gradient through the wrapper on the card, autograd of the plain
+    version) for one random cotangent; the coordinates require grad too and
+    must get none from the wrapper."""
+    gen = torch.Generator().manual_seed(seed)
+    vol = volume.clone().requires_grad_()
+    cs = [c.clone().requires_grad_() for c in coords]
+    out = kernel_fn(vol, *cs)
+    ct = torch.randn(out.shape, generator=gen).to(out.device)
+    out.backward(ct)
+    assert all(c.grad is None for c in cs)
+    ref = volume.clone().requires_grad_()
+    (want,) = torch.autograd.grad(plain_fn(ref, *coords), ref, ct)
+    return vol.grad, want
+
+
+def _grad_close(got, want):
+    scale = want.abs().max().item()
+    assert scale > 0
+    assert (got - want).abs().max().item() <= 3e-5 * scale
+
+
+def test_warp_kernels_have_the_plain_versions_gradients(dev):
+    b, h, w, d, c = 2, 24, 32, 16, 8
+    k, poses, dv = _setup(dev, h, w, d, c, b)
+    gen = torch.Generator().manual_seed(4)
+    dint = (8.0 - 0.5) / (d - 1)
+    # kernel 1
+    src = torch.randn(b, h, w, c, generator=gen).to(dev)
+    proj = geometry.camera_projection(k, poses)
+    ref = geometry.camera_projection(k, torch.eye(4, device=dev).expand(
+        b, 4, 4))
+    x, y = warp.plane_sweep_coords(proj, ref, dv, h, w)
+    counts = [kern.launches for kern in (
+        plane_warp.KERNEL, plane_warp_exact_z.KERNEL, plane_mix.KERNEL,
+        two_pass.KERNEL)]
+    _grad_close(*_grad_pair(plane_warp.plane_sweep_sample,
+                            plane_warp.plane_sweep_sample_plain, src, (x, y),
+                            0))
+    # kernels 2 and 4
+    vol = torch.randn(b, d, h, w, c, generator=gen).to(dev)
+    t, grid, x, y, z = warp.frustum_coords(poses, k, dv, h, w)
+    zi = zi_field(t, k, dv, 0.5, dint, grid)
+    _grad_close(*_grad_pair(
+        lambda v, *cs: plane_warp_exact_z.exact_z_resample(v, *cs, 0.5, dint),
+        lambda v, *cs: resample_exact_z(v, *cs, 0.5, dint), vol,
+        (zi, x, y, z), 1))
+    _grad_close(*_grad_pair(plane_mix.plane_mix_resample,
+                            plane_mix.plane_mix_resample_plain, vol,
+                            (zi, x, y), 2))
+    # kernel 3: the gradient of the exact bilinear sample at (x, y)
+    src, ab, x, y = _two_pass_inputs(dev, 6)
+    _grad_close(*_grad_pair(
+        lambda s, a, xs, ys: two_pass.two_pass_resample(s, a, xs, ys, 6),
+        lambda s, a, xs, ys: plane_warp.plane_sweep_sample_plain(
+            s, xs.reshape(2, -1), ys.reshape(2, -1)).reshape(-1, 24, 32, 8),
+        src, (ab, x, y), 3))
+    # every forward launched its kernel
+    assert [kern.launches for kern in (
+        plane_warp.KERNEL, plane_warp_exact_z.KERNEL, plane_mix.KERNEL,
+        two_pass.KERNEL)] == [n + 1 for n in counts]
+
+
+def test_attention_kernel_refuses_a_gradient(dev):
+    tk, wk, wv = _attention_inputs(dev)
+    valid = torch.ones(3, 2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="requires grad"):
+        epipolar_attention.epipolar_attention(
+            tk.clone().requires_grad_(), wk, wv, valid)
+    with pytest.raises(ValueError, match="requires grad"):
+        epipolar_attention.epipolar_attention(
+            tk, wk.clone().requires_grad_(), wv, valid)
+
+
+def test_train_step_launches_the_kernels_and_remat_relaunches_them(dev):
+    """A small training step on the card: one plane sweep and one exact-z
+    frustum warp per target in the forward, their gradients through the
+    plain versions; with remat the recomputed forward launches each again,
+    and the loss and the gradient norm are the plain step's."""
+    from estdepth_tpu_torch.config import ModelConfig
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_window,
+    )
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+    from estdepth_tpu_torch.train.trainer import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    window = synthetic_window(SyntheticSceneConfig(height=64, width=96,
+                                                   focal=80.0), n_frames=4,
+                              depth_min=0.5, depth_max=8.0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in window.items()}
+    results = {}
+    for remat in (False, True):
+        model = DepthNetHybrid(ModelConfig(
+            ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18), seed=0)
+        model.to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0)
+        step = make_train_step(model, opt, sched, 0.5, 8.0, remat=remat,
+                               remat_policy="save_features")
+        before = (plane_warp.KERNEL.launches,
+                  plane_warp_exact_z.KERNEL.launches)
+        scalars = step(batch, 10.0)
+        launched = (plane_warp.KERNEL.launches - before[0],
+                    plane_warp_exact_z.KERNEL.launches - before[1])
+        assert launched == ((2, 4) if remat else (1, 2))
+        results[remat] = (float(scalars["loss"]),
+                          float(scalars["grad_norm"]),
+                          int(model.pre0[1].num_batches_tracked))
+    assert results[True][2] == results[False][2] == 1
+    np.testing.assert_allclose(results[True][:2], results[False][:2],
+                               rtol=1e-4)

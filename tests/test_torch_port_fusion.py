@@ -32,6 +32,9 @@ from estdepth_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_port_common import (
     H, ND, W, model_pair, random_variables, scene_arrays,
 )
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _attention_case(n, s, p, none_valid=None, c=16, seed=0):

@@ -19,6 +19,9 @@ from estdepth_tpu_torch.config import resolve_frustum_mode
 from estdepth_tpu_torch.data import synthetic as tsynthetic
 from estdepth_tpu_torch.tools.eval_joint import JointRunner, run_synthetic
 from test_torch_port_common import H, W, model_pair, scene_arrays
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LW, STRIDE, WINDOWS = 5, 3, 3
 

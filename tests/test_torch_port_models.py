@@ -30,6 +30,10 @@ from estdepth_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_port_common import (
     DMAX, DMIN, ND, H, W, model_pair, pitched_frames, random_variables,
 )
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def _window(frames, start):
     sl = frames[start:start + 3]

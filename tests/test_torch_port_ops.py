@@ -24,6 +24,9 @@ from estdepth_tpu_torch.ops import geometry as tgeo
 from estdepth_tpu_torch.ops import sampling as tsampling
 from estdepth_tpu_torch.ops import warp as twarp
 from estdepth_tpu_torch.ops import warp_exact_z as tez
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DMIN, DMAX, ND = 0.5, 8.0, 16
 DINT = (DMAX - DMIN) / (ND - 1)
@@ -307,7 +310,7 @@ def _port_plane_mix(vol, rel, intr):
 @pytest.mark.parametrize("case", ["realistic", "translation", "rotation",
                                   "far"])
 def test_plane_mix_plain_matches_xla(case):
-    """The plain version of kernel 3 (2-tap z-mix, then a bilinear sample)
+    """The plain version of kernel 4 (2-tap z-mix, then a bilinear sample)
     against the JAX dense hat-weight einsum form."""
     rng = np.random.default_rng(2)
     b, h, w, c = 1, 24, 32, 8

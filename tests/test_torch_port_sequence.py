@@ -24,6 +24,9 @@ from estdepth_tpu_torch.eval.sequence import (
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
 from test_torch_port_common import DMAX, DMIN, H, ND, W, scene_arrays
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

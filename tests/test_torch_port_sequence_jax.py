@@ -21,6 +21,9 @@ import pytest
 from estdepth_tpu.eval import sequence as jsequence
 from estdepth_tpu_torch.eval import sequence as tsequence
 from test_torch_port_common import H, W, model_pair, scene_arrays
+from test_torch_port_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 8e-3
 
