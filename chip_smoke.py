@@ -19,12 +19,18 @@ plane sweep and once through the fused two-pass resample). Every phase
 prints one line; any failure raises and exits non-zero. The last line is
 {"ok": true, "device": {...}}.
 
+A kernel's time is device ms per call, from runs of 20 back-to-back calls
+queued while the device is held busy, one CUDA event pair per run; where a
+PyTorch call computes the same memory work (F.grid_sample,
+scaled_dot_product_attention) the kernel and that call are timed in turns.
+
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -70,6 +76,7 @@ GRAD_TOL = 3e-5
 LWINDOW, MEMORY, FRAMES = 3, 2, 8
 SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 5, 3
 TRAIN_FRAMES, TRAIN_STEPS = 5, 4  # the first step warms up
+LAUNCHES = 20  # back-to-back calls per timed run of a kernel
 # in the order of PERF.md's table of TPU kernels (rows 1 to 5)
 KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
            "frustum_warp_exact_z": plane_warp_exact_z.KERNEL,
@@ -94,21 +101,67 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, one CUDA event pair per call."""
-    for _ in range(warmup):
-        fn()
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    return 10**7 / start.elapsed_time(end)
+
+
+def _hold_device(ms: float) -> None:
+    """Keep the device busy for about `ms` (torch.cuda._sleep spins a
+    kernel), so that the host has queued what follows before it runs."""
+    torch.cuda._sleep(int(ms * _sleep_cycles_per_ms()))
+
+
+def _host_ms(fn, launches: int) -> float:
+    """Host ms per call that fn() takes to queue its work."""
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    t0 = time.perf_counter()
+    for _ in range(launches):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    host = (time.perf_counter() - t0) * 1e3 / launches
+    torch.cuda.synchronize()
+    return host
+
+
+def _batch(fn, launches: int, host_ms: float) -> float:
+    """Device ms per call of `launches` back-to-back calls of fn() between
+    one CUDA event pair, queued while the device is held busy: the pair's
+    own microseconds are spread over the run and no call waits for the
+    host, so a call of ~0.04 ms is told apart from its neighbours."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _hold_device(2 * launches * host_ms + 0.5)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def batch_ms(fn, launches: int = LAUNCHES, reps: int = 5) -> float:
+    """Median over `reps` runs of the device ms per call of fn()."""
+    host = _host_ms(fn, launches)
+    return statistics.median(_batch(fn, launches, host) for _ in range(reps))
+
+
+def turns_ms(kern, library, launches: int = LAUNCHES,
+             rounds: int = 5) -> tuple[float, float]:
+    """Device ms per call of kern() and of library(), timed in turns in
+    runs of `launches` calls (kernel, library, library, kernel in every
+    round) so that both see the same clocks: the medians of each."""
+    host = {fn: _host_ms(fn, launches) for fn in (kern, library)}
+    times = {kern: [], library: []}
+    for _ in range(rounds):
+        for fn in (kern, library, library, kern):
+            times[fn].append(_batch(fn, launches, host[fn]))
+    return statistics.median(times[kern]), statistics.median(times[library])
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -161,15 +214,28 @@ def _compare(name: str, kernel_out, plain_out) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel}
 
 
-def _measure(name: str, kern, plain, moved: int, flops: float) -> dict:
-    """kern() against plain() under REL_TOL, both timed, and the bound of
-    `moved` bytes and `flops` float32 operations."""
+def _measure(name: str, kern, plain, moved: int, flops: float,
+             library=None, exact: bool = False) -> dict:
+    """kern() against plain() under REL_TOL (with `exact`, bit for bit),
+    both timed, kern() in turns with `library()` where one is given, and
+    the bound of `moved` bytes and `flops` float32 operations with the
+    rate and the share of it that the kernel reached."""
     out_k, out_p = kern(), plain()
     m = {"shape": list(out_k.shape), **_compare(name, out_k, out_p)}
+    if exact:
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version at {m['shape']}")
+        m["bit_equal"] = True
     del out_k, out_p
-    m["ms"] = cuda_ms(kern)
-    m["plain_ms"] = cuda_ms(plain, reps=10)
+    if library is None:
+        m["ms"], m["library_ms"] = batch_ms(kern), None
+    else:
+        m["ms"], m["library_ms"] = turns_ms(kern, library)
+    m["plain_ms"] = batch_ms(plain, reps=3)
     m["bound_ms"], m["bound_by"] = bound_ms(moved, flops)
+    m["tb_per_s"] = moved / m["ms"] * 1e3 / 1e12
+    m["bound_share"] = m["bound_ms"] / m["ms"]
     return m
 
 
@@ -184,25 +250,23 @@ def _plane_sweep_case(gen, poses, k4, dv, src_frames, ref_frames) -> dict:
     x, y = warp.plane_sweep_coords(proj[src_frames], proj[ref_frames],
                                    dv.expand(b, d), h, w)
     out_numel, voxels = b * d * h * w * c, b * d * h * w
-    m = _measure(
+    return _measure(
         "plane_sweep_warp",
         lambda: plane_warp.plane_sweep_sample(src, x, y),
         lambda: plane_warp.plane_sweep_sample_plain(src, x, y),
-        nbytes(src, x, y) + 4 * out_numel, out_numel * 9 + voxels * 20)
-    m["library_ms"] = _grid_sample_ms(src, x, y)
-    return m
+        nbytes(src, x, y) + 4 * out_numel, out_numel * 9 + voxels * 20,
+        library=_grid_sample(src, x, y), exact=True)
 
 
-def _grid_sample_ms(src, x, y) -> float:
+def _grid_sample(src, x, y):
     """One F.grid_sample call over the same coordinates (a softer edge
     rule than the port's hard mask): timed here, used nowhere."""
     b, h, w, _ = src.shape
     nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
     grid = grid.reshape(b, -1, w, 2)
-    return cuda_ms(lambda: F.grid_sample(
-        nchw, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True))
+    return lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
 
 
 def _two_pass_inputs(gen, poses, k4, dv, src_frames, ref_frames):
@@ -232,17 +296,19 @@ def _two_pass_case(gen, poses, k4, dv, src_frames, ref_frames,
     if planes_per_map == 1:
         src = torch.randn(ab.shape[0], h, w, c, generator=gen).to(src.device)
     out_numel = ab.shape[0] * h * w * c
+    # grid_sample computes the exact sample, not the two-pass function: a
+    # yardstick of the same memory work
+    library = (_grid_sample(src, x.reshape(b, -1), y.reshape(b, -1))
+               if planes_per_map > 1 else None)
     m = _measure(
         "two_pass_resample",
         lambda: two_pass.two_pass_resample(src, ab, x, y, planes_per_map),
         lambda: two_pass.two_pass_resample_plain(src, ab, x, y,
                                                  planes_per_map),
         nbytes(src, ab, x, y) + 4 * out_numel,
-        out_numel * 8 + out_numel // c * 24)
+        out_numel * 9 + out_numel // c * 24, library=library, exact=True)
     m["planes_per_map"] = planes_per_map
     if planes_per_map > 1:
-        m["library_ms"] = _grid_sample_ms(src, x.reshape(b, -1),
-                                          y.reshape(b, -1))
         # how far the two-pass form is from the exact bilinear sample
         # (kernel 1) on this scene; no limit, a property of the function
         exact = plane_warp.plane_sweep_sample(src, x.reshape(b, -1),
@@ -277,7 +343,6 @@ def _exact_z_case(gen, poses, k4, dv, neighbour_frames, target_frame) -> dict:
                                                     DEPTH_MIN, dint),
         plain, nbytes(vol, zi, x, y, z) + nbytes(vol),
         vol.numel() * 32 + vol.numel() // c * 30)
-    m["library_ms"] = None
     m["valid_share"] = (plain().abs().amax(-1) > 0).float().mean().item()
     return m
 
@@ -324,7 +389,6 @@ def phase_kernels() -> list[dict]:
         **_two_pass_case(gen, poses, k4, dv, *WINDOW_SWEEPS),
         "estm": _two_pass_case(gen, poses, k4, dv, [0, 2], [1, 1]),
         "map_per_plane": _two_pass_case(gen, poses, k4, dv, [0], [1], 1)})
-    rows[-1]["map_per_plane"]["library_ms"] = None
 
     # kernel 4, Joint window: target frame 1 against in-window targets 0
     # and 2 and the memory frame 3, keys and values concatenated
@@ -347,8 +411,8 @@ def phase_kernels() -> list[dict]:
            "source": "estdepth_tpu_torch/csrc/frustum_warp_plane_mix.cu",
            "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:533",
            **_compare("frustum_warp_plane_mix", warped, out_p)}
-    row["ms"] = cuda_ms(kern)
-    row["plain_ms"] = cuda_ms(plain, reps=10)
+    row["ms"] = batch_ms(kern)
+    row["plain_ms"] = batch_ms(plain, reps=3)
     row["library_ms"] = None
     voxels = warped.numel() // c
     row["bound_ms"], row["bound_by"] = bound_ms(
@@ -378,8 +442,7 @@ def phase_kernels() -> list[dict]:
            **_compare("epipolar_attention", out_k, out_p)}
     # the tolerance the JAX package holds its TPU kernel to
     torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
-    row["ms"] = cuda_ms(kern)
-    row["plain_ms"] = cuda_ms(plain, reps=10)
+    row["plain_ms"] = batch_ms(plain, reps=3)
     # one library call for the same function with every neighbour valid:
     # attention of 1 query over N keys per voxel, then the mean's 1 / N
     voxels = d * h * w
@@ -394,7 +457,7 @@ def phase_kernels() -> list[dict]:
     lib_err = (library().reshape(out_p.shape) - out_p).abs().max().item()
     if not lib_err < 1e-4:
         raise AssertionError(f"library attention differs by {lib_err}")
-    row["library_ms"] = cuda_ms(library, reps=10)
+    row["ms"], row["library_ms"] = turns_ms(kern, library)
     row["bound_ms"], row["bound_by"] = bound_ms(
         nbytes(tk, out_k) + 2 * n * nbytes(tk), voxels * (n * 64 + n * 20))
     rows.append(row)

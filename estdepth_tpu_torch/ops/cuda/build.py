@@ -7,8 +7,9 @@ compiled on its own by
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
 into `build/kernels/` at the root of the checkout. The file name carries a
-hash of the source and flags, so an edited source is rebuilt and a stale
-library is never loaded. `build_all()` starts one nvcc per source at once.
+hash of the source, of every header in `csrc/` (`*.cuh`, which a source
+may include) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. `build_all()` starts one nvcc per source at once.
 Nothing is built when a module is imported.
 """
 
@@ -48,8 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -9,11 +9,14 @@ x = a_w * h + b_w and pass 2 blends rows y0 and y0 + 1 of that image at the
 exact y. It equals the exact bilinear sample where the line is vertical
 (pure translations) and deviates by a sub-pixel amount under rotation.
 
-On a CUDA tensor `two_pass_resample` launches the kernel; on a CPU tensor
-it runs `two_pass_resample_plain`, the same operations in the same order
-written with `torch.gather`. The line coefficients are computed in PyTorch
-by the caller (`line_coeffs`), as the JAX package computes them outside its
-`pallas_call`.
+On a CUDA tensor `two_pass_resample` launches the kernel, which keeps no
+pass-1 image: pass 2 at (i, w) reads column w of it at rows y0 and
+y0 + 1 only, so the kernel computes those two values from four gathers of
+the source map and blends them, the same operations in the same order (bit
+for bit the two passes). On a CPU tensor it runs
+`two_pass_resample_plain`, the two passes written with `torch.gather`. The
+line coefficients are computed in PyTorch by the caller (`line_coeffs`),
+as the JAX package computes them outside its `pallas_call`.
 
 Gradient, as the JAX package's `custom_vjp` (_psweep_bwd): the kernel is
 forward-only; the backward is autograd of the EXACT bilinear sample

@@ -6,7 +6,9 @@
     flax or estdepth_tpu (an AST walk);
   * entry points run on the CUDA device unless asked for the CPU: without
     a GPU they raise, and the kernels neither build without nvcc nor fall
-    back to the plain version for a tensor that is not on the CPU.
+    back to the plain version for a tensor that is not on the CPU;
+  * a library's name changes with its source and with every csrc header,
+    and tools/kernel_report.py reads ptxas's and cuobjdump's reports.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
     two_pass,
 )
+from estdepth_tpu_torch.tools import kernel_report
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_port_common import one_torch_thread  # noqa: F401
 
@@ -209,3 +212,53 @@ def test_strided_voxel_rows_check():
         build.require_voxel_rows(tk.bfloat16(), "tk", (b, d, h, w, c), dev)
     with pytest.raises(ValueError, match="shape"):
         build.require_voxel_rows(tk, "tk", (b, d, h, w, 8), dev)
+
+
+def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
+    """Kernels 1 and 3 include csrc/sweep_gather.cuh: an edited header, like
+    an edited source, names a new library, so a stale one is never
+    loaded."""
+    for name in ("plane_sweep_warp", "two_pass_resample"):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sweep_gather.cuh"' in text
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert first == build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = build.library_path("k")
+    assert len({first, second, third}) == 3
+    assert build.sources() == ["k"]
+
+
+def test_kernel_report_reads_ptxas_and_sass():
+    ptxas = """\
+ptxas info    : Compiling entry function '_Z1kILi8EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILi8EEvPf
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'
+ptxas info    : Used 31 registers, 1024 bytes smem, 384 bytes cmem[0]
+"""
+    assert kernel_report.ptxas_report(ptxas) == {
+        "_Z1kILi8EEvPf": {"spill_bytes": 12, "registers": 96,
+                          "smem_bytes": 0},
+        "_Z1gv": {"registers": 31, "smem_bytes": 1024}}
+    sass = """\
+\tcode for sm_90a
+\t\tFunction : _Z1kILi8EEvPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   SHFL.IDX PT, R4, R2, R3, 0x1f ;
+        /*0020*/              @!P0 LDG.E.128.CONSTANT R8, desc[UR4][R6.64] ;
+        /*0030*/                   STG.E.EF.128 desc[UR4][R10.64], R12 ;
+        /*0040*/                   EXIT ;
+\t\tFunction : _Z1gv
+        /*0000*/                   EXIT ;
+"""
+    counts = kernel_report.sass_counts(sass)
+    assert counts["_Z1kILi8EEvPf"] == {"instructions": 5, "shuffles": 1,
+                                       "global_loads": 1, "global_stores": 1}
+    assert counts["_Z1gv"] == {"instructions": 1}

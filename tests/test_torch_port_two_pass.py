@@ -7,6 +7,10 @@ through the Pallas interpreter as tests/test_pallas_warp.py runs it. The
 inputs are made with numpy from a seed and handed to both. Tolerance
 1e-4 x scale; measured 1.7e-6 x scale (the JAX package holds its split
 form to the fused one at 3e-6).
+
+The CUDA kernel computes each output voxel directly from four gathers of
+its source map, with no pass-1 image (csrc/two_pass_resample.cu). A
+PyTorch mirror of that form is held here to the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from estdepth_tpu.ops import warp as jwarp
 from estdepth_tpu.ops.pallas import plane_warp as jpw
 from estdepth_tpu_torch.ops import warp as twarp
 from estdepth_tpu_torch.ops.cuda import two_pass
+from estdepth_tpu_torch.ops.sampling import corner
 
 from test_torch_port_common import (  # noqa: F401
     one_torch_thread, training_test_env,
@@ -138,3 +143,73 @@ def test_two_pass_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="unsupported device"):
         two_pass.two_pass_resample(src.to("meta"), ab.to("meta"),
                                    xy.to("meta"), xy.to("meta"), 3)
+
+
+def _four_gathers(src, ab, x, y, planes_per_map):
+    """The kernel's form of the two passes: output (p, i, w) from rows y0
+    and y0 + 1 of column w of the pass-1 image, each computed from two
+    gathers of the source map, with the kernel's operations in its order."""
+    m, h, w, c = src.shape
+    p = ab.shape[0]
+    flat = src.reshape(m, h * w, c).repeat_interleave(planes_per_map, 0)
+    x, y = x.reshape(p, h, w), y.reshape(p, h, w)
+    valid = (y >= 0) & (y <= h - 1) & (x >= 0) & (x <= w - 1)
+    y0, f2 = corner(y, h)
+    a, b = ab[:, 0, None, :], ab[:, 1, None, :]
+
+    def mix(g0, g1, f):
+        return g0 * (1.0 - f[..., None]) + g1 * f[..., None]
+
+    def row(r):  # the pass-1 value at row r of each voxel's column
+        x0, f = corner(a * r.float() + b, w)
+        idx = (r * w + x0).reshape(p, h * w, 1).expand(-1, -1, c)
+        g0, g1 = torch.gather(flat, 1, idx), torch.gather(flat, 1, idx + 1)
+        return mix(g0, g1, f.reshape(p, h * w))
+
+    out = mix(row(y0), row(y0 + 1), f2.reshape(p, h * w))
+    out = torch.where(valid.reshape(p, h * w, 1), out, torch.zeros_like(out))
+    return out.reshape(p, h, w, c)
+
+
+def _rotations(rng, p, h, w, angle):
+    """Rotations about the image centre by about `angle`, shifted by a
+    fifth of the image and with a little perspective: source lines cross
+    rows, and some leave the image."""
+    cx, cy = (w - 1) / 2, (h - 1) / 2
+    out = []
+    for _ in range(p):
+        t = angle * (1.0 + 0.5 * rng.standard_normal())
+        rot = np.array([[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0],
+                        [0, 0, 1]])
+        move = np.array([[1, 0, cx + 0.2 * w * rng.standard_normal()],
+                         [0, 1, cy + 0.2 * h * rng.standard_normal()],
+                         [0, 0, 1]])
+        back = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]])
+        hm = move @ rot @ back
+        hm[2, :2] += 2e-3 * rng.standard_normal(2)
+        out.append(hm)
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,planes_per_map,h,w,c,angle", [
+    (2, 1, 12, 20, 4, 0.1), (2, 5, 12, 21, 32, -0.15),
+    (1, 3, 2, 9, 4, 0.05), (3, 2, 7, 33, 32, 0.3), (2, 4, 2, 2, 4, 0.0)])
+def test_four_gather_form_is_the_two_passes(m, planes_per_map, h, w, c,
+                                            angle):
+    rng = np.random.default_rng(11)
+    p = m * planes_per_map
+    src = _t(rng.normal(size=(m, h, w, c)))
+    hm = _rotations(rng, p, h, w, angle)
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pix = np.stack([u.ravel(), v.ravel(), np.ones(h * w)]).astype(np.float32)
+    q = hm @ pix
+    x, y = _t(q[:, 0] / q[:, 2]), _t(q[:, 1] / q[:, 2])
+    ab = two_pass.line_coeffs(_t(hm), w)
+    want = two_pass.two_pass_resample_plain(src, ab, x, y, planes_per_map)
+    got = _four_gathers(src, ab, x, y, planes_per_map)
+    assert torch.equal(got, want)
+    # voxels inside and outside, and pass-1 lines that leave the image
+    assert (want == 0).all(-1).any() and (want != 0).all(-1).any()
+    line = ab[:, 0, None, :] * torch.arange(h)[None, :, None] + ab[:, 1, None,
+                                                                  :]
+    assert ((line < 0) | (line > w - 1)).any()
