@@ -15,9 +15,14 @@ random weights from a seed) through the kernels: the ESTM streaming step
 out, a 1-entry memory; once with the default warp and once with the
 plane-mix warp and the attention kernel), and the training step of
 tools/train.py (5-frame windows, batch 1, EST on; once with the default
-plane sweep and once through the fused two-pass resample). Every phase
-prints one line; any failure raises and exits non-zero. The last line is
-{"ok": true, "device": {...}}.
+plane sweep and once through the fused two-pass resample). Last, the
+dataset path: a scene written in ScanNet's layout (640x480 PNGs, one
+non-finite pose) and a reference-format checkpoint of the seed-0 model go
+through the ESTM and Joint eval tools' own `run` (maps saved, ground
+truth scored at 640x480) and tools/score_offline.py rescores the ESTM
+dump; the tools' maps are held bit for bit against an ESTMRunner fed the
+same frames. Every phase prints one line; any failure raises and exits
+non-zero. The last line is {"ok": true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
 queued while the device is held busy, one CUDA event pair per run; where a
@@ -30,8 +35,10 @@ without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,8 +50,12 @@ import torch
 import torch.nn.functional as F
 
 from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
+from estdepth_tpu_torch.data import io_utils
+from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
+from estdepth_tpu_torch.data.eval_windows import WindowEvalDataset
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, intrinsics, pose, render, synthetic_stream,
+    write_scannet_scene,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
@@ -54,11 +65,13 @@ from estdepth_tpu_torch.ops.cuda import (
     two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
-from estdepth_tpu_torch.tools import eval_joint
+from estdepth_tpu_torch.tools import eval_estm, eval_joint, score_offline
 from estdepth_tpu_torch.tools import train as train_tool
 from estdepth_tpu_torch.tools.eval_estm import run_synthetic
 from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
 from estdepth_tpu_torch.train.trainer import make_optimizer, make_train_step
+from estdepth_tpu_torch.utils import viz
+from estdepth_tpu_torch.utils.convert import load_reference_checkpoint
 
 # Flagship shapes: 256x320 frames, cost volume 64x80, D = 64 planes, 32
 # matching channels. ESTM step: 2 plane-sweep neighbours and 2 memory
@@ -76,6 +89,14 @@ GRAD_TOL = 3e-5
 LWINDOW, MEMORY, FRAMES = 3, 2, 8
 SEQ_LENGTH, JOINT_WINDOWS, JOINT_NEIGHBOURS = 5, 5, 3
 TRAIN_FRAMES, TRAIN_STEPS = 5, 4  # the first step warms up
+# dataset path: ScanNet's 640x480 frames and focal; every second frame is
+# sampled, and frame 10 has a non-finite pose (ESTM skips it, Joint the
+# window that holds it)
+SCENE, SCENE_FRAMES, SCENE_INTERVAL, NONFINITE_FRAME = (
+    "scene0000_00", 40, 2, 10)
+# the float16 rounding of the saved maps, relative, between the ESTM tool's
+# mean metrics and score_offline's on its dump
+DUMP_REL_TOL = 2e-3
 LAUNCHES = 20  # back-to-back calls per timed run of a kernel
 # in the order of PERF.md's table of TPU kernels (rows 1 to 5)
 KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
@@ -750,9 +771,10 @@ def phase_reference_train() -> None:
             launches=launched)
 
 
-def phase_main_path(rows: list[dict]) -> None:
+def phase_main_path(rows: list[dict]) -> float:
     """The ESTM streaming step at the flagship width through the kernels:
-    every kernel's count is set to 0 just before and read just after."""
+    every kernel's count is set to 0 just before and read just after.
+    Returns the steady-state ms per frame."""
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     res = run_synthetic(HEIGHT, WIDTH, NDEPTHS, DEPTH_MIN, DEPTH_MAX,
@@ -782,6 +804,7 @@ def phase_main_path(rows: list[dict]) -> None:
                                                 float(maps.max())])
     for row in rows:
         row["launches_by_path"] = {"estm": launches[row["name"]]}
+    return ms
 
 
 def phase_joint_path(rows: list[dict]) -> None:
@@ -900,6 +923,228 @@ def phase_train_path(rows: list[dict]) -> None:
         del res
 
 
+def _write_dataset(tmp: str) -> tuple[str, str]:
+    """The dataset phase's inputs: a ScanNet-layout scene rendered at
+    ScanNet's 640x480 and focal, and the seed-0 model's weights as a
+    reference checkpoint (`module.` names under "model")."""
+    cfg = SyntheticSceneConfig(height=480, width=640, focal=577.87)
+    poses = [pose(cfg, i) for i in range(SCENE_FRAMES)]
+    poses[NONFINITE_FRAME][:3, 3] = np.nan
+    data = os.path.join(tmp, "scannet")
+    write_scannet_scene(os.path.join(data, SCENE), cfg, poses)
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50), seed=0)
+    ckpt = os.path.join(tmp, "model.ckpt")
+    torch.save({"epoch": 0, "model": {f"module.{k}": v for k, v in
+                                      model.state_dict().items()}}, ckpt)
+    return data, ckpt
+
+
+def _check_maps(path: str, maps: np.ndarray, shape: tuple) -> None:
+    if maps.shape != shape:
+        raise AssertionError(f"{path}: outputs {maps.shape}, expected "
+                             f"{shape}")
+    if not (np.isfinite(maps).all() and maps.min() >= 0
+            and maps.max() <= DEPTH_MAX):
+        raise AssertionError(f"{path}: depths not finite or outside "
+                             f"[0, depth_max]")
+
+
+def _dumps(outdir: str) -> int:
+    return len([f for f in os.listdir(outdir) if f.endswith(".npy")])
+
+
+@contextlib.contextmanager
+def _without_opencv():
+    """The port's readers and image writer as on a machine without OpenCV
+    (data/png.py and io_utils.resize_linear), whether or not cv2 imports."""
+    saved = io_utils.HAVE_CV2, viz.HAVE_CV2
+    io_utils.HAVE_CV2 = viz.HAVE_CV2 = False
+    try:
+        yield
+    finally:
+        io_utils.HAVE_CV2, viz.HAVE_CV2 = saved
+
+
+def _readers_against_opencv(data: str, frames: int = 3):
+    """Where cv2 imports: the stream's first frames read by the port's own
+    decoder and resize against cv2's. Depth must be equal and colour within
+    1 grey level (the tolerance the CPU tests allow; they measure equality
+    with the cv2 there). None without cv2."""
+    if not io_utils.HAVE_CV2:
+        return None
+    got = []
+    for ctx in (contextlib.nullcontext, _without_opencv):
+        ds = StreamEvalDataset(data, HEIGHT, WIDTH,
+                               frame_interval=SCENE_INTERVAL)
+        ds.reset(SCENE)
+        with ctx():
+            got.append([f for _, f in zip(range(frames), ds)])
+    diff = np.stack([np.abs(a["img"].astype(int) - b["img"])
+                     for a, b in zip(*got)])
+    if not (diff.max() <= 1 and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(*got)
+            for k in ("dmap", "dmask"))):
+        raise AssertionError(f"the port's reader differs from cv2 (colour "
+                             f"by up to {diff.max()})")
+    return {"cv2": _cv2_version(), "frames": frames,
+            "img_max_abs_diff": int(diff.max()),
+            "img_diff_share": float((diff > 0).mean()), "depth_equal": True}
+
+
+def _cv2_version():
+    return io_utils.cv2.__version__ if io_utils.HAVE_CV2 else None
+
+
+def phase_dataset_path(rows: list[dict], main_ms: float) -> None:
+    """The eval tools on a recorded scene at the flagship width: a scene in
+    ScanNet's layout and a reference checkpoint through tools/eval_estm.py
+    and tools/eval_joint.py (`run`, maps saved; Joint once with the default
+    warp and once with the plane-mix warp and the attention kernel), then
+    tools/score_offline.py on the ESTM dump, all with the readers of a
+    machine without OpenCV (where cv2 imports, they are first held against
+    it). Every kernel's count is set to 0 just before each tool run and
+    read just after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_") as tmp:
+        t0 = time.perf_counter()
+        data, ckpt = _write_dataset(tmp)
+        write_s = time.perf_counter() - t0
+        against_opencv = _readers_against_opencv(data)
+        with _without_opencv():
+            res, joint, offline, launches, peak = _dataset_runs(
+                rows, data, ckpt, tmp)
+    ms = 1e3 * statistics.median(res["times"][2:])
+    host = sum(res["host"].values())
+    steps = len(res["maps"])
+    maps = np.stack(res["maps"])
+    log("dataset_path", scene=[480, 640], frames=steps + LWINDOW - 1,
+        outputs=steps, write_scene_s=write_s, opencv=_cv2_version(),
+        readers_against_opencv=against_opencv, launches=launches,
+        ms_per_frame=ms, main_path_ms_per_frame=main_ms,
+        ratio_to_main_path=ms / main_ms,
+        times_ms=[1e3 * t for t in res["times"]],
+        wall_ms_per_frame=1e3 * res["seconds"] / steps,
+        host_ms_per_frame={k: 1e3 * v / steps for k, v in
+                           res["host"].items()},
+        host_share=host / res["seconds"], max_memory_allocated=peak,
+        bit_equal_to_runner=True, score_offline=offline, joint=joint,
+        depth_range=[float(maps.min()), float(maps.max())])
+
+
+def _dataset_runs(rows: list[dict], data: str, ckpt: str, tmp: str):
+    """phase_dataset_path's tool runs and their checks: (ESTM result,
+    Joint summaries, score_offline against the ESTM tool, ESTM launches,
+    ESTM peak memory)."""
+    flags = ["--datapath", data, "--eval-dataset", "scannet", "--ckpt",
+             ckpt, "--frame-interval", str(SCENE_INTERVAL),
+             "--save-maps", "--height", str(HEIGHT), "--width",
+             str(WIDTH), "--ndepths", str(NDEPTHS), "--depth-min",
+             str(DEPTH_MIN), "--depth-max", str(DEPTH_MAX), "--resnet",
+             "50"]
+
+    # ESTM through the tool, then the same frames through a runner
+    estm_dir = os.path.join(tmp, "estm")
+    args = eval_estm.parse_args(flags + ["--outdir", estm_dir])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = eval_estm.run(args, keep_maps=True)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ds = StreamEvalDataset(data, HEIGHT, WIDTH, depth_min=DEPTH_MIN,
+                           depth_max=min(DEPTH_MAX, 5.0),
+                           frame_interval=SCENE_INTERVAL)
+    ds.reset(SCENE)
+    frames = SCENE_FRAMES // SCENE_INTERVAL - 1  # one pose skipped
+    steps = frames - LWINDOW + 1
+    if len(ds) != frames:
+        raise AssertionError(f"stream of {len(ds)} frames")
+    maps = np.stack(res["maps"])
+    _check_maps("estm_dataset", maps, (steps, 2, HEIGHT, WIDTH))
+    if launches != {**dict.fromkeys(KERNELS, 0),
+                    "plane_sweep_warp": steps,
+                    "frustum_warp_exact_z": steps - 1}:
+        raise AssertionError(f"estm_dataset: kernel launches {launches}")
+    if _dumps(estm_dir) != 2 * steps:
+        raise AssertionError(f"estm_dataset: {_dumps(estm_dir)} maps")
+    for row in rows:
+        row["launches_by_path"]["estm_dataset"] = launches[row["name"]]
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50))
+    model.load_state_dict(load_reference_checkpoint(ckpt)[0])
+    runner = ESTMRunner(model, HEIGHT, WIDTH, LWINDOW, MEMORY,
+                        output_scales=(0, 2), device="cuda")
+    ref = [out[0].cpu().numpy() for f in ds if (out := runner.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    if not (len(ref) == steps and all(
+            np.array_equal(a, b) for a, b in zip(maps, ref))):
+        raise AssertionError("estm_dataset: the tool's maps differ from "
+                             "an ESTMRunner's on the same frames")
+    del runner, model
+
+    # the dump rescored offline
+    scores = score_offline.main([
+        "--preddir", estm_dir, "--datapath", data, "--frame-interval",
+        str(SCENE_INTERVAL), "--height", str(HEIGHT), "--width",
+        str(WIDTH), "--json", os.path.join(tmp, "scores.json")])
+    offline = {}
+    for k in ("abs_relative", "rmse"):
+        tool = float(np.mean([e[k] for e in res["errors"]]))
+        offline[k] = {"tool": tool, "score_offline":
+                      scores["overall"][k]}
+        if not abs(scores["overall"][k] - tool) <= DUMP_REL_TOL * tool:
+            raise AssertionError(f"score_offline {k} "
+                                 f"{scores['overall'][k]} against the "
+                                 f"tool's {tool}")
+
+    # Joint: 5-frame windows; the one holding the bad pose is skipped
+    wds = WindowEvalDataset(data, HEIGHT, WIDTH, seq_length=SEQ_LENGTH,
+                            frame_interval=SCENE_INTERVAL,
+                            scannet_layout=True)
+    wds.reset(SCENE)
+    windows, targets = len(wds), SEQ_LENGTH - 2
+    fused = (windows - 1) * targets
+    joint = {}
+    for path, extra, expected in (
+            ("joint_dataset", [], {"frustum_warp_exact_z": fused}),
+            ("joint_dataset_plane_mix_fused_attention",
+             ["--no-exact-z", "--fused-attention"],
+             {"frustum_warp_plane_mix": fused,
+              "epipolar_attention": fused})):
+        outdir = os.path.join(tmp, path)
+        jargs = eval_joint.parse_args(
+            flags + ["--save-probs", "--outdir", outdir] + extra)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        jres = eval_joint.run(jargs, keep_maps=True)
+        torch.cuda.synchronize()
+        jl = _read_counts()
+        jmaps = np.stack(jres["maps"])
+        _check_maps(path, jmaps, (windows, targets, 2, HEIGHT, WIDTH))
+        expected = {**dict.fromkeys(KERNELS, 0),
+                    "plane_sweep_warp": windows, **expected}
+        if jl != expected:
+            raise AssertionError(f"{path}: kernel launches {jl}, "
+                                 f"expected {expected}")
+        # per target: refined and fused depth, init and refined prob
+        if _dumps(outdir) != 4 * targets * windows:
+            raise AssertionError(f"{path}: {_dumps(outdir)} maps")
+        for row in rows:
+            row["launches_by_path"][path] = jl[row["name"]]
+        jms = 1e3 * statistics.median(jres["times"][2:])
+        joint[path] = {
+            "windows": windows, "launches": jl, "ms_per_window": jms,
+            "targets_per_s": targets * 1e3 / jms,
+            "times_ms": [1e3 * t for t in jres["times"]],
+            "host_ms_per_window": {k: 1e3 * v / windows for k, v in
+                                   jres["host"].items()},
+            "wall_ms_per_window": 1e3 * jres["seconds"] / windows,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return res, joint, offline, launches, peak
+
+
 def main() -> None:
     dev_info = phase_device()
     phase_build()
@@ -909,9 +1154,10 @@ def main() -> None:
     phase_reference()
     phase_reference_joint()
     phase_reference_train()
-    phase_main_path(rows)
+    main_ms = phase_main_path(rows)
     phase_joint_path(rows)
     phase_train_path(rows)
+    phase_dataset_path(rows, main_ms)
     for row in rows:  # every kernel ran on a main path
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"] > 0:

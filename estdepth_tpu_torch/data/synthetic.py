@@ -3,12 +3,15 @@ own numpy copy of estdepth_tpu/data/synthetic.py).
 
 A textured slanted plane rendered from a moving pinhole camera; depth is
 analytic, so the eval CLI and the smoke run work without a dataset and
-their output can be checked to the pixel. Host-side numpy arrays.
+their output can be checked to the pixel. Host-side numpy arrays;
+`write_scannet_scene` also writes a scene to disk in ScanNet's layout for
+the dataset readers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterator, Optional
 
 import numpy as np
@@ -133,3 +136,26 @@ def synthetic_stream(
             "dmap": depth,
             "dmask": mask,
         }
+
+
+def write_scannet_scene(folder: str, cfg: SyntheticSceneConfig,
+                        poses) -> None:
+    """Render one frame per cam-to-world pose [4, 4] into `folder` in the
+    ScanNet layout the eval datasets read: rgb/<i>.png (8-bit RGB),
+    depth/<i>.png (16-bit millimetres), pose/<i>.txt. A pose that is not
+    finite is written as it is, beside the identity pose's images: the
+    datasets skip such a frame. PNGs are written by data/png.py, so no
+    OpenCV is needed."""
+    from estdepth_tpu_torch.data import png
+
+    for sub in ("rgb", "depth", "pose"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for i, p in enumerate(poses):
+        p = np.asarray(p, np.float32)
+        rgb, depth = render(cfg, p if np.isfinite(p).all() else np.eye(4))
+        png.write(os.path.join(folder, "rgb", f"{i}.png"),
+                  rgb.astype(np.uint8))
+        png.write(os.path.join(folder, "depth", f"{i}.png"),
+                  np.clip(np.rint(depth * 1000.0), 0, 65535).astype(
+                      np.uint16))
+        np.savetxt(os.path.join(folder, "pose", f"{i}.txt"), p)

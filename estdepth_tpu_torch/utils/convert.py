@@ -147,3 +147,60 @@ def grads_from_jax(grads) -> dict[str, torch.Tensor]:
     against `jax.grad` name by name: the mapping of `state_dict_from_jax`
     (conv kernels transposed the same way), without batch statistics."""
     return state_dict_from_jax({"params": grads})
+
+
+# The reference's parameter names the port's model carries, after the
+# `module.` prefix: the name rules of the JAX package's convert_state_dict
+# (estdepth_tpu/utils/convert.py:49-153), each with its leaf
+_LEAF = r"\.(weight|bias|running_mean|running_var)$"
+_REFERENCE_NAMES = re.compile("|".join(f"(?:{p}{_LEAF})" for p in (
+    r"matchingFeature\.firstconv\.\d+\.\d+",
+    r"matchingFeature\.layer\d+\.\d+\.conv1\.0\.\d+",
+    r"matchingFeature\.layer\d+\.\d+\.(?:conv2|downsample)\.\d+",
+    r"matchingFeature\.branch\d+\.1\.\d+",
+    r"matchingFeature\.lastconv\.0\.\d+",
+    r"matchingFeature\.lastconv\.2",
+    r"semanticFeature\.encoder\.(?:conv1|bn1)",
+    r"semanticFeature\.encoder\.layer\d+\.\d+\.(?:conv|bn)\d",
+    r"semanticFeature\.encoder\.layer\d+\.\d+\.downsample\.\d+",
+    r"CostRegNet\.upconv_\d_\d\.conv\.\d+",
+    r"CostRegNet\.dispconv_[01]",
+    r"CostRegNet\.dres[01]\.\d+\.\d+",
+    r"CostRegNet\.dres2\.0\.\d+",
+    r"CostRegNet\.(?:key_layer|value_layer)\.0\.\d+",
+    r"CostRegNet\.stereo_head[01]\.0\.\d+",
+    r"CostRegNet\.stereo_head[01]\.1",
+    r"CostRegNet\.epipolar_transformer\.(?:gate_conv|output_conv"
+    r"|reset_gate_norm|update_gate_norm|output_norm)",
+    r"pre[012]\.\d+",
+)))
+
+
+def load_reference_checkpoint(path: str, strict: bool = True):
+    """A reference checkpoint file (`torch.save({'epoch', 'model',
+    'optimizer'})`, the reference's train_hybrid.py:137-151, or a bare
+    state_dict) -> (state_dict for DepthNetHybrid.load_state_dict, the
+    names it could not place).
+
+    The counterpart of the JAX package's load_torch_checkpoint and
+    convert_state_dict (estdepth_tpu/utils/convert.py:156-213, 344-350):
+    the DDP `module.` prefix is stripped, BatchNorm's num_batches_tracked
+    and the ResNet classifier head `fc.` are dropped, and any other name
+    outside the model's raises a KeyError under `strict`. The file is read
+    with `weights_only=True` (tensors, numbers and containers only)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state = blob.get("model", blob) if isinstance(blob, dict) else blob
+    out, unmatched = {}, []
+    for key, value in state.items():
+        name = key[len("module."):] if key.startswith("module.") else key
+        if (name.endswith("num_batches_tracked")
+                or name.startswith("semanticFeature.encoder.fc.")):
+            continue
+        if _REFERENCE_NAMES.fullmatch(name):
+            out[name] = value
+        else:
+            unmatched.append(key)
+    if unmatched and strict:
+        raise KeyError(f"unmatched torch keys ({len(unmatched)}): "
+                       f"{unmatched[:10]} ...")
+    return out, unmatched

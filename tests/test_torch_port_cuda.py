@@ -17,6 +17,8 @@ run to run; chip_smoke.py measures up to 5.3e-6 at the flagship shapes).
 The attention kernel sums its 16 channels and its softmax in another order
 than PyTorch's reductions, so it is held to rtol 1e-5 / atol 1e-6, the
 tolerance the JAX package holds its TPU kernel to (tests/test_pallas.py).
+The ESTM tool's dataset path (a scene written by data/png.py, a reference
+checkpoint) is held against its CPU run at the chain tolerance 8e-3.
 """
 
 from __future__ import annotations
@@ -351,3 +353,56 @@ def test_train_step_launches_the_kernels_and_remat_relaunches_them(dev):
     assert results[True][2] == results[False][2] == 1
     np.testing.assert_allclose(results[True][:2], results[False][:2],
                                rtol=1e-4)
+
+
+def test_dataset_eval_on_the_card_matches_cpu(dev, tmp_path):
+    """The ESTM tool's dataset path at a small size (a ScanNet-layout scene
+    written by data/png.py, a reference checkpoint, maps saved): the
+    card's maps within the chain tolerance 8e-3 of the CPU run's, and
+    depth_metrics on the card equal to it on the CPU."""
+    from estdepth_tpu_torch.config import ModelConfig
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, pose, write_scannet_scene,
+    )
+    from estdepth_tpu_torch.eval.metrics import depth_metrics
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+    from estdepth_tpu_torch.tools import eval_estm
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SyntheticSceneConfig(height=120, width=160, focal=144.4675)
+    poses = []  # a small pitch and lift: no coordinate on the border
+    for i in range(7):
+        p = pose(cfg, i) @ _pose(0.0, 0.011 * i, 0.0, 0.0,
+                                 0.013 * i + 0.002).numpy()
+        poses.append(p)
+    write_scannet_scene(str(tmp_path / "data" / "scene0000_00"), cfg, poses)
+    model = DepthNetHybrid(ModelConfig(ndepths=8, depth_min=0.5,
+                                       depth_max=8.0, resnet=18), seed=0)
+    ckpt = str(tmp_path / "model.ckpt")
+    torch.save({"model": {f"module.{k}": v
+                          for k, v in model.state_dict().items()}}, ckpt)
+    argv = ["--datapath", str(tmp_path / "data"), "--ckpt", ckpt,
+            "--height", "64", "--width", "96", "--ndepths", "8", "--resnet",
+            "18", "--frame-interval", "1", "--depth-min", "0.5",
+            "--depth-max", "8.0", "--save-maps"]
+    maps = {}
+    for name, d in (("cpu", "cpu"), ("card", str(dev))):
+        res = eval_estm.run(eval_estm.parse_args(
+            argv + ["--device", d, "--outdir", str(tmp_path / name)]),
+            keep_maps=True)
+        maps[name] = np.stack(res["maps"])
+    assert maps["card"].shape == (5, 2, 64, 96)
+    np.testing.assert_allclose(maps["card"], maps["cpu"], atol=8e-3, rtol=0)
+
+    rng = np.random.default_rng(0)
+    pred = torch.from_numpy(maps["cpu"][None])  # [1, T, 2, H, W]
+    gt = torch.from_numpy(rng.uniform(0.5, 5.0, (1, 5, 64, 96)).astype(
+        np.float32))
+    mask = gt > 1.0
+    want = depth_metrics(pred, gt, mask, scales=(0, 1))
+    got = depth_metrics(pred.to(dev), gt.to(dev), mask.to(dev),
+                        scales=(0, 1))
+    for k, v in want.items():
+        assert got[k].device.type == dev.type
+        np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
