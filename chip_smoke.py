@@ -21,7 +21,13 @@ non-finite pose) and a reference-format checkpoint of the seed-0 model go
 through the ESTM and Joint eval tools' own `run` (maps saved, ground
 truth scored at 640x480) and tools/score_offline.py rescores the ESTM
 dump; the tools' maps are held bit for bit against an ESTMRunner fed the
-same frames. Every phase prints one line; any failure raises and exits
+same frames. Then training from recorded scenes: a scene written in
+ScanNet's training layout (640x480 JPEG colour, one JPEG corrupt, 200 pose
+ids of which every 10th is sampled) and a seeded torchvision-layout
+ResNet-50 go through tools/train.py's `run` (`--datapath`,
+`--pretrained-encoder`, 4 decode threads, image dumps), after the native
+window reader is held against cv2 on that scene; one more run trains
+ResNet-101. Every phase prints one line; any failure raises and exits
 non-zero. The last line is {"ok": true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
@@ -50,15 +56,16 @@ import torch
 import torch.nn.functional as F
 
 from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
-from estdepth_tpu_torch.data import io_utils
+from estdepth_tpu_torch.data import io_utils, native
 from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
 from estdepth_tpu_torch.data.eval_windows import WindowEvalDataset
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, intrinsics, pose, render, synthetic_stream,
-    write_scannet_scene,
+    write_scannet_scene, write_scannet_train_scene,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+from estdepth_tpu_torch.models.resnet import ResNetEncoder
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
@@ -94,6 +101,10 @@ TRAIN_FRAMES, TRAIN_STEPS = 5, 4  # the first step warms up
 # window that holds it)
 SCENE, SCENE_FRAMES, SCENE_INTERVAL, NONFINITE_FRAME = (
     "scene0000_00", 40, 2, 10)
+# training from recorded scenes: 200 pose ids, every 10th sampled (20
+# frames, 5 windows of 5), the first JPEG cut inside its header
+TRAIN_SCENE_IDS, TRAIN_SCENE_INTERVAL, TRAIN_DATASET_STEPS = 200, 10, 6
+IMAGE_FREQ, TRAIN_WORKERS = 3, 4
 # the float16 rounding of the saved maps, relative, between the ESTM tool's
 # mean metrics and score_offline's on its dump
 DUMP_REL_TOL = 2e-3
@@ -859,15 +870,17 @@ def phase_joint_path(rows: list[dict]) -> None:
             row["launches_by_path"][path] = launches[row["name"]]
 
 
-def phase_train_path(rows: list[dict]) -> None:
+def phase_train_path(rows: list[dict]) -> dict:
     """The training step at the flagship width through tools/train.py's own
     loop (`run`): 256x320, D = 64, ResNet-50, 5-frame windows, batch 1, EST
     on, 1 warm-up step and 3 timed ones, once with the default plane sweep
     (kernel 1) and once through the two-pass resample (kernel 3). Every
-    kernel's count is set to 0 just before each run and read just after."""
+    kernel's count is set to 0 just before each run and read just after.
+    Returns each run's ms per step."""
     moved_prefixes = ("matchingFeature", "semanticFeature", "CostRegNet",
                       "pre0")
     targets = TRAIN_FRAMES - 2
+    ms_per_step = {}
     for path, flags in (("train", []),
                         ("train_two_pass_warp", ["--two-pass-warp"])):
         with tempfile.TemporaryDirectory() as logdir:
@@ -910,6 +923,7 @@ def phase_train_path(rows: list[dict]) -> None:
                        if k.startswith(prefix) and k.endswith("weight")):
                 raise AssertionError(f"{path}: no weight of {prefix} moved")
         ms = 1e3 * statistics.median(r["seconds"] for r in records[1:])
+        ms_per_step[path] = ms
         log("train_path", path=path, steps=TRAIN_STEPS, remat=False,
             launches=launches,
             launches_per_step={k: n // TRAIN_STEPS
@@ -921,6 +935,7 @@ def phase_train_path(rows: list[dict]) -> None:
         for row in rows:
             row["launches_by_path"][path] = launches[row["name"]]
         del res
+    return ms_per_step
 
 
 def _write_dataset(tmp: str) -> tuple[str, str]:
@@ -1145,6 +1160,187 @@ def _dataset_runs(rows: list[dict], data: str, ckpt: str, tmp: str):
     return res, joint, offline, launches, peak
 
 
+def _torchvision_pth(path: str, depth: int, seed: int) -> dict:
+    """A seeded state dict in torchvision's resnet<depth> layout (the
+    encoder's names, num_batches_tracked and the fc head), saved to `path`
+    as a .pth: a stand-in for ImageNet weights. Returns it."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, v in ResNetEncoder(depth).encoder.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = torch.tensor(100)
+        elif v.dim() == 4:  # conv: He normal
+            state[name] = torch.randn(v.shape, generator=gen) * (
+                2.0 / v[0].numel()) ** 0.5
+        elif name.endswith("running_var"):
+            state[name] = 0.5 + torch.rand(v.shape, generator=gen)
+        elif name.endswith("weight"):
+            state[name] = 0.5 + 0.5 * torch.rand(v.shape, generator=gen)
+        else:  # bias, running_mean
+            state[name] = 0.1 * torch.randn(v.shape, generator=gen)
+    width = 512 * (4 if depth > 34 else 1)
+    state["fc.weight"] = 0.01 * torch.randn(1000, width, generator=gen)
+    state["fc.bias"] = torch.zeros(1000)
+    torch.save(state, path)
+    return state
+
+
+def _write_train_dataset(tmp: str) -> tuple[str, str]:
+    """phase_train_dataset's scene: ScanNet's training layout at 640x480
+    and its focal, 200 pose ids with colour (JPEG) and depth for every
+    10th, the first JPEG cut inside its header. Returns (data root, the
+    corrupt JPEG's path)."""
+    cfg = SyntheticSceneConfig(height=480, width=640, focal=577.87)
+    poses = [pose(cfg, k // TRAIN_SCENE_INTERVAL)
+             for k in range(TRAIN_SCENE_IDS)]
+    data = os.path.join(tmp, "scannet_train")
+    jpegs = write_scannet_train_scene(os.path.join(data, SCENE), cfg, poses,
+                                      TRAIN_SCENE_INTERVAL)
+    with open(jpegs[0], "rb") as f:
+        head = f.read(300)
+    with open(jpegs[0], "wb") as f:
+        f.write(head)
+    return data, jpegs[0]
+
+
+def _native_against_opencv(window: dict) -> dict:
+    """The native reader against cv2 on one window of the scene, at the
+    JAX package's tolerances (tests/test_native_loader.py); the build's
+    error where it did not build."""
+    if not native.available():
+        return {"built": False, "build_error": native.build_error()}
+    imgs, depths, poses = native.read_window(
+        window["images"], window["depths"], window["poses"], WIDTH, HEIGHT)
+    img_err = np.stack([np.abs(imgs[i] - io_utils.read_image_rgb(
+        p, WIDTH, HEIGHT)) for i, p in enumerate(window["images"])])
+    depth_err = max(float(np.abs(depths[i] - io_utils.read_depth_mm(
+        p, WIDTH, HEIGHT)).max()) for i, p in enumerate(window["depths"]))
+    for i, p in enumerate(window["poses"]):
+        np.testing.assert_allclose(poses[i], io_utils.read_pose(p),
+                                   rtol=1e-6)
+    if not (img_err.mean() < 1.0 and img_err.max() < 16.0
+            and depth_err < 0.02):
+        raise AssertionError(f"native reader against cv2: colour mean "
+                             f"{img_err.mean()} max {img_err.max()}, "
+                             f"depth {depth_err} m")
+    return {"built": True, "frames": len(window["images"]),
+            "img_mean_abs_diff": float(img_err.mean()),
+            "img_max_abs_diff": float(img_err.max()),
+            "depth_max_abs_diff_m": depth_err, "poses_rtol": 1e-6}
+
+
+def _train_on_scene(data: str, logdir: str, resnet: int, pth: str,
+                    steps: int) -> tuple[dict, dict, int]:
+    """tools/train.py's `run` on the written scene at the flagship width:
+    (result, launches, peak bytes). Every kernel's count is set to 0 just
+    before the run and read just after."""
+    args = train_tool.parse_args([
+        "--datapath", data, "--steps", str(steps), "--height", str(HEIGHT),
+        "--width", str(WIDTH), "--ndepths", str(NDEPTHS), "--depth-min",
+        str(DEPTH_MIN), "--depth-max", str(DEPTH_MAX), "--resnet",
+        str(resnet), "--n-frames", str(TRAIN_FRAMES), "--batch-per-device",
+        "1", "--summary-freq", "1", "--seed", "0", "--num-workers",
+        str(TRAIN_WORKERS), "--image-freq", str(IMAGE_FREQ),
+        "--pretrained-encoder", pth, "--logdir", logdir])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = train_tool.run(args)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    records = res["records"]
+    if [r["step"] for r in records] != list(range(1, steps + 1)):
+        raise AssertionError(f"resnet {resnet}: steps {records}")
+    for r in records:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"resnet {resnet}: step {r['step']} loss "
+                                 f"{r['loss']} grad_norm {r['grad_norm']}")
+    # per step one plane sweep and one frustum warp per target; each image
+    # dump runs an eval-mode forward: one more plane sweep, no EST fusion
+    dumps = steps // IMAGE_FREQ
+    expected = {**dict.fromkeys(KERNELS, 0),
+                "plane_sweep_warp": steps + dumps,
+                "frustum_warp_exact_z": (TRAIN_FRAMES - 2) * steps}
+    if launches != expected:
+        raise AssertionError(f"resnet {resnet}: kernel launches {launches}, "
+                             f"expected {expected}")
+    img_dir = os.path.join(logdir, "images")
+    images = sorted(os.listdir(img_dir)) if os.path.isdir(img_dir) else []
+    want = sorted(f"{kind}_{step:07d}.jpg" for kind in ("depth", "prob", "gt")
+                  for step in range(IMAGE_FREQ, steps + 1, IMAGE_FREQ))
+    if images != want:
+        raise AssertionError(f"resnet {resnet}: image dumps {images}")
+    return res, launches, peak
+
+
+def phase_train_dataset(rows: list[dict], train_ms: float) -> None:
+    """Training from a recorded scene through tools/train.py at the
+    flagship width (256x320, D = 64, ResNet-50, 5-frame windows, batch 1):
+    `--datapath` on a written ScanNet training scene with one corrupt JPEG,
+    `--pretrained-encoder` from a seeded torchvision-layout .pth, 4 decode
+    threads, an image dump every 3 steps, 6 steps; then 2 steps of
+    ResNet-101 from its own .pth. The native reader is first held against
+    cv2 on the scene where it builds. Reports ms per step beside
+    phase_train_path's in the same run, the loop's wait on the loader, and
+    peak memory."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        data, corrupt = _write_train_dataset(tmp)
+        write_s = time.perf_counter() - t0
+        args = train_tool.parse_args(["--datapath", data])
+        dataset = train_tool.make_dataset(args)
+        if len(dataset) != 5:
+            raise AssertionError(f"{len(dataset)} training windows")
+        against_opencv = _native_against_opencv(dataset.index[1])
+        pth = os.path.join(tmp, "resnet50.pth")
+        encoder = _torchvision_pth(pth, 50, seed=0)
+        logdir = os.path.join(tmp, "logs")
+        res, launches, peak = _train_on_scene(
+            data, logdir, 50, pth, TRAIN_DATASET_STEPS)
+        # the encoder started from the .pth: a few Adam steps at a warm-up
+        # rate of ~1e-5 move no weight by 1e-3, a fresh init by ~0.1
+        final = res["state"].model.state_dict()
+        moved = max(float((final[f"semanticFeature.encoder.{k}"].cpu()
+                           - v).abs().max())
+                    for k, v in encoder.items()
+                    if k.endswith("weight") and not k.startswith("fc."))
+        if not moved < 1e-3:
+            raise AssertionError(f"the encoder is {moved} from the .pth")
+        del res["state"]
+        pth101 = os.path.join(tmp, "resnet101.pth")
+        _torchvision_pth(pth101, 101, seed=1)
+        res101, launches101, peak101 = _train_on_scene(
+            data, os.path.join(tmp, "logs101"), 101, pth101, 2)
+        del res101["state"]
+    records = res["records"]
+    ms = 1e3 * statistics.median(r["seconds"] for r in records[1:])
+    waits = [1e3 * r["loader_seconds"] for r in records]
+    log("train_dataset", scene=[480, 640], windows=len(dataset),
+        corrupt_jpeg=os.path.basename(corrupt), backend=dataset.backend,
+        write_scene_s=write_s, native_against_opencv=against_opencv,
+        opencv=_cv2_version(), steps=TRAIN_DATASET_STEPS,
+        num_workers=TRAIN_WORKERS, launches=launches,
+        ms_per_step=ms, train_path_ms_per_step=train_ms,
+        ratio_to_train_path=ms / train_ms,
+        times_ms=[1e3 * r["seconds"] for r in records],
+        loader_wait_ms=waits,
+        loader_wait_ms_per_step=statistics.mean(waits[1:]),
+        losses=[r["loss"] for r in records], encoder_max_moved=moved,
+        max_memory_allocated=peak,
+        resnet101={"launches": launches101,
+                   "times_ms": [1e3 * r["seconds"]
+                                for r in res101["records"]],
+                   "loader_wait_ms": [1e3 * r["loader_seconds"]
+                                      for r in res101["records"]],
+                   "losses": [r["loss"] for r in res101["records"]],
+                   "max_memory_allocated": peak101})
+    for row in rows:
+        row["launches_by_path"]["train_dataset"] = launches[row["name"]]
+        row["launches_by_path"]["train_dataset_resnet101"] = launches101[
+            row["name"]]
+
+
 def main() -> None:
     dev_info = phase_device()
     phase_build()
@@ -1156,8 +1352,9 @@ def main() -> None:
     phase_reference_train()
     main_ms = phase_main_path(rows)
     phase_joint_path(rows)
-    phase_train_path(rows)
+    train_ms = phase_train_path(rows)
     phase_dataset_path(rows, main_ms)
+    phase_train_dataset(rows, train_ms["train"])
     for row in rows:  # every kernel ran on a main path
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"] > 0:

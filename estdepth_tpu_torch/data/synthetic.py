@@ -159,3 +159,33 @@ def write_scannet_scene(folder: str, cfg: SyntheticSceneConfig,
                   np.clip(np.rint(depth * 1000.0), 0, 65535).astype(
                       np.uint16))
         np.savetxt(os.path.join(folder, "pose", f"{i}.txt"), p)
+
+
+def write_scannet_train_scene(folder: str, cfg: SyntheticSceneConfig,
+                              poses, interval: int = 10) -> list[str]:
+    """One scene in ScanNet's training layout, which the training dataset
+    reads: pose/<i>.txt for every cam-to-world pose [4, 4], and for every
+    `interval`-th id (those the dataset samples) the rendered colour as
+    rgb/<i>.jpg (through OpenCV, default quality) and depth/<i>.png
+    (16-bit millimetres). Returns the paths of the JPEGs written."""
+    import cv2
+
+    from estdepth_tpu_torch.data import png
+
+    for sub in ("rgb", "depth", "pose"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    written = []
+    for i, p in enumerate(poses):
+        p = np.asarray(p, np.float32)
+        np.savetxt(os.path.join(folder, "pose", f"{i}.txt"), p)
+        if i % interval:
+            continue
+        rgb, depth = render(cfg, p)
+        path = os.path.join(folder, "rgb", f"{i}.jpg")
+        cv2.imwrite(path, cv2.cvtColor(rgb.astype(np.uint8),
+                                       cv2.COLOR_RGB2BGR))
+        png.write(os.path.join(folder, "depth", f"{i}.png"),
+                  np.clip(np.rint(depth * 1000.0), 0, 65535).astype(
+                      np.uint16))
+        written.append(path)
+    return written

@@ -1,4 +1,4 @@
-"""ResNet context encoder 18/34/50, torchvision layout (port of
+"""ResNet context encoder 18/34/50/101/152, torchvision layout (port of
 estdepth_tpu/models/resnet.py; reference resnet_encoder.py:17-51).
 
 Returns the 5 post-ReLU feature maps [relu(bn1(conv1)), layer1..layer4]
@@ -19,6 +19,8 @@ _STAGES = {
     18: ("basic", (2, 2, 2, 2)),
     34: ("basic", (3, 4, 6, 3)),
     50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
 }
 
 
@@ -109,8 +111,8 @@ class ResNetEncoder(nn.Module):
     def __init__(self, depth: int = 50):
         super().__init__()
         if depth not in _STAGES:
-            raise ValueError(f"resnet depth {depth} is not ported "
-                             f"(one of {sorted(_STAGES)})")
+            raise ValueError(f"resnet depth {depth} is not one of "
+                             f"{sorted(_STAGES)}")
         mult = 4 if depth > 34 else 1
         self.num_ch_enc = (64, 64 * mult, 128 * mult, 256 * mult, 512 * mult)
         self.encoder = _ResNet(depth)

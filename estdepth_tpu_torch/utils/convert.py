@@ -11,6 +11,13 @@ Layouts: a JAX conv kernel [kh, kw, I, O] becomes [O, I, kh, kw] and
 [kd, kh, kw, I, O] becomes [O, I, kd, kh, kw]; BatchNorm scale/bias and
 batch_stats mean/var become weight/bias/running_mean/running_var;
 GroupNorm scale/bias become weight/bias.
+
+It also imports ImageNet-pretrained torchvision ResNet weights as the
+context encoder's initialization (the counterpart of
+convert_torchvision_resnet and load_pretrained_encoder,
+estdepth_tpu/utils/convert.py:353-384): from a torchvision `.pth`, or from
+the `.npz` that tools/import_torchvision.py of either package writes, whose
+names are the JAX tree's `params/...` and `batch_stats/...` paths.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import re
 
 import numpy as np
 import torch
+
+ENCODER_PREFIX = "semanticFeature.encoder."
 
 
 def _torch_conv_kernel(k: np.ndarray) -> np.ndarray:
@@ -204,3 +213,89 @@ def load_reference_checkpoint(path: str, strict: bool = True):
         raise KeyError(f"unmatched torch keys ({len(unmatched)}): "
                        f"{unmatched[:10]} ...")
     return out, unmatched
+
+
+# torchvision resnet names -> (the JAX encoder subtree's module path, the
+# torch leaf): conv1/bn1 are the stem's ConvBN, convK/bnK the block's
+# ConvBN "convK", downsample.0/.1 its "downsample" ConvBN
+_TORCHVISION_RULES = (
+    (r"conv1\.(weight)", ("conv1", "conv")),
+    (r"bn1\.(\w+)", ("conv1", "bn")),
+    (r"layer(\d)\.(\d+)\.conv(\d)\.(weight)",
+     ("layer{0}_{1}", "conv{2}", "conv")),
+    (r"layer(\d)\.(\d+)\.bn(\d)\.(\w+)", ("layer{0}_{1}", "conv{2}", "bn")),
+    (r"layer(\d)\.(\d+)\.downsample\.0\.(weight)",
+     ("layer{0}_{1}", "downsample", "conv")),
+    (r"layer(\d)\.(\d+)\.downsample\.1\.(\w+)",
+     ("layer{0}_{1}", "downsample", "bn")),
+)
+_JAX_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+             "running_mean": ("batch_stats", "mean"),
+             "running_var": ("batch_stats", "var")}
+
+
+def _torchvision_encoder_items(state_dict):
+    """(name, tensor) of a torchvision resnet state_dict (bare or under
+    "state_dict"), without the classifier head `fc.`."""
+    state = state_dict.get("state_dict", state_dict)
+    for name, value in state.items():
+        if not name.startswith("fc."):
+            yield name, torch.as_tensor(value)
+
+
+def convert_torchvision_resnet(state_dict) -> dict[str, np.ndarray]:
+    """A torchvision resnet{18,34,50,101,152} state_dict -> the arrays of
+    the JAX `semantic_feature` subtree under their flattened paths
+    (`params/layer1_0/conv1/conv/kernel`, `batch_stats/conv1/bn/mean`):
+    what the JAX package's flatten_tree(convert_torchvision_resnet(...))
+    gives, and what tools/import_torchvision.py writes. The classifier head
+    and num_batches_tracked are dropped; any other unknown name raises."""
+    out = {}
+    for name, value in _torchvision_encoder_items(state_dict):
+        if name.endswith("num_batches_tracked"):
+            continue
+        for pattern, path in _TORCHVISION_RULES:
+            m = re.fullmatch(pattern, name)
+            if m:
+                break
+        else:
+            raise KeyError(f"not a torchvision resnet name: {name}")
+        *groups, leaf = m.groups()
+        module = "/".join(p.format(*groups) for p in path)
+        arr = value.detach().cpu().numpy()
+        if arr.ndim == 4:  # a conv weight
+            out[f"params/{module}/kernel"] = np.transpose(arr, (2, 3, 1, 0))
+        else:
+            root, jax_leaf = _JAX_LEAF[leaf]
+            out[f"{root}/{module}/{jax_leaf}"] = arr
+    return out
+
+
+def _unflatten(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def load_pretrained_encoder(path: str) -> dict[str, torch.Tensor]:
+    """The `semanticFeature.encoder.*` tensors of the port's model from a
+    torchvision resnet `.pth` (read with `weights_only=True`; the
+    classifier head dropped, num_batches_tracked kept) or from a `.npz` of
+    the JAX tree's paths (tools/import_torchvision.py of either package).
+    Load them with utils/checkpoint.partial_restore."""
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            tree = _unflatten(dict(npz))
+        sd = state_dict_from_jax({
+            "params": {"semantic_feature": tree.get("params", {})},
+            "batch_stats": {"semantic_feature": tree.get("batch_stats", {})},
+        })
+        return {k: v for k, v in sd.items() if k.startswith(ENCODER_PREFIX)}
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return {ENCODER_PREFIX + name: value
+            for name, value in _torchvision_encoder_items(blob)}

@@ -7,7 +7,13 @@ distinct batches, the reference's recipe on both sides (Adam 4e-5 with L2
 `plane_mix_exact_z` (JAX: `fast_frustum` + `exact_z_warp`, the XLA forms;
 the port on CPU tensors: the plain versions of kernels 1 and 2 with the
 wrappers' gradient rules). The JAX step runs as shipped: shard_map over a
-1-device mesh with the sync-BN axis. One JAX compile in this file.
+1-device mesh with the sync-BN axis. One JAX compile in this file: both
+tests feed it batches of the same shapes.
+
+The dataset test runs the port's training tool on a scene it writes in
+ScanNet's training layout (`--datapath`, the same weights through
+`--loadckpt`) and the JAX step on the JAX package's ScanNetTrainDataset and
+TrainLoader over the same files: the first 2 losses at rtol 3e-3.
 
 Held, with the trajectory tolerances of PARITY.md as
 tests/test_reference_parity.py applies them: the loss of each of 3 steps at
@@ -41,19 +47,25 @@ import numpy as np
 import pytest
 import torch
 
+from estdepth_tpu.data.pipeline import TrainLoader as JaxTrainLoader
+from estdepth_tpu.data.scannet import ScanNetTrainDataset as JaxScanNet
 from estdepth_tpu.parallel.mesh import create_mesh, shard_batch
 from estdepth_tpu.train.schedule import warmup_multistep_schedule as jax_sched
 from estdepth_tpu.train.trainer import (
     TrainState as JaxTrainState, make_optimizer as jax_make_optimizer,
     make_train_step as jax_make_train_step,
 )
+from estdepth_tpu_torch.data.synthetic import (
+    SyntheticSceneConfig, write_scannet_train_scene,
+)
+from estdepth_tpu_torch.tools import train as train_tool
 from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
 from estdepth_tpu_torch.train.trainer import make_optimizer, make_train_step
 from estdepth_tpu_torch.utils.convert import (
     grads_from_jax, state_dict_from_jax,
 )
-from test_torch_port_common import (
-    DMAX, DMIN, model_pair, one_torch_thread, pitched_frames,
+from test_torch_port_common import (  # noqa: F401
+    DMAX, DMIN, H, ND, W, model_pair, one_torch_thread, pitched_frames,
     training_test_env,
 )
 
@@ -78,24 +90,36 @@ def _batches():
         }
 
 
-def test_three_train_steps_match_jax():
+@pytest.fixture(scope="module")
+def jax_setup():
+    """(JAX model, variables, the port's model with the same weights, the
+    JAX optimizer, its shipped train step on a 1-device mesh, the mesh)."""
     jm, variables, tm = model_pair(
         views=4, jax_kwargs=dict(sequential_cost_bn=True,
                                  bn_axis_name="data"),
         sequential_cost_bn=True)
-    batches = list(_batches())
-
-    # ---- JAX: the shipped step on a 1-device mesh -------------------------
     mesh = create_mesh(1)
     tx = jax_make_optimizer(
         jax_sched(LR, steps_per_epoch=10**6, warmup_steps=500),
         weight_decay=WD)
-    state = JaxTrainState(
+    return (jm, variables, tm, tx,
+            jax_make_train_step(jm, tx, mesh, DMIN, DMAX), mesh)
+
+
+def _jax_state(variables, tx):
+    return JaxTrainState(
         step=jnp.zeros((), jnp.int32),
         params=jax.tree.map(jnp.asarray, variables["params"]),
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
         opt_state=tx.init(variables["params"]))
-    jax_step = jax_make_train_step(jm, tx, mesh, DMIN, DMAX)
+
+
+def test_three_train_steps_match_jax(jax_setup):
+    jm, variables, tm, tx, jax_step, mesh = jax_setup
+    batches = list(_batches())
+
+    # ---- JAX: the shipped step on a 1-device mesh -------------------------
+    state = _jax_state(variables, tx)
     jax_losses, jax_norms, jax_grads = [], [], None
     for i, batch in enumerate(batches):
         state, scalars = jax_step(state, shard_batch(batch, mesh),
@@ -165,3 +189,39 @@ def test_three_train_steps_match_jax():
                    "pre0"):
         assert any(k.startswith(prefix) and float(v.norm()) > 0
                    for k, v in grads.items()), prefix
+
+
+def test_datapath_training_matches_jax(jax_setup, tmp_path):
+    """`tools/train.py --datapath` of the port for 2 steps against the JAX
+    step on the JAX loader's first 2 batches of the same scene: 11 sampled
+    frames of a rendered scene (JPEG colour), 4-frame windows, batch 1,
+    seed 0, the same weights on both sides."""
+    _, variables, _, tx, jax_step, mesh = jax_setup
+    root = tmp_path / "scannet"
+    cfg = SyntheticSceneConfig(height=96, width=128, focal=115.6)
+    frames = pitched_frames(11)  # the pitched path of the other tests
+    write_scannet_train_scene(str(root / "scene0000_00"), cfg,
+                              [frames[k // 10]["cam_pose"]
+                               for k in range(110)])
+    ckpt = tmp_path / "weights.ckpt"
+    torch.save(state_dict_from_jax(variables), ckpt)
+    res = train_tool.run(train_tool.parse_args([
+        "--datapath", str(root), "--device", "cpu", "--height", str(H),
+        "--width", str(W), "--ndepths", str(ND), "--depth-min", str(DMIN),
+        "--depth-max", str(DMAX), "--resnet", "18", "--n-frames", "4",
+        "--sequential-cost-bn", "--lr", str(LR), "--wd", str(WD),
+        "--steps", "2", "--summary-freq", "1", "--seed", "0",
+        "--num-workers", "2", "--loadckpt", str(ckpt), "--logdir",
+        str(tmp_path / "logs")]))
+    losses = [r["loss"] for r in res["records"]]
+
+    dataset = JaxScanNet(str(root), None, H, W, 4,
+                         depth_min=max(DMIN, 0.1), depth_max=DMAX)
+    assert len(dataset) == 2
+    state, jax_losses = _jax_state(variables, tx), []
+    for batch in JaxTrainLoader(dataset, 1, num_workers=2, seed=0).epoch(0):
+        state, scalars = jax_step(state, shard_batch(batch, mesh),
+                                  jnp.float32(CLIP))
+        jax_losses.append(float(scalars["loss"]))
+    assert len(losses) == len(jax_losses) == 2
+    np.testing.assert_allclose(losses, jax_losses, rtol=3e-3)
