@@ -27,8 +27,16 @@ ids of which every 10th is sampled) and a seeded torchvision-layout
 ResNet-50 go through tools/train.py's `run` (`--datapath`,
 `--pretrained-encoder`, 4 decode threads, image dumps), after the native
 window reader is held against cv2 on that scene; one more run trains
-ResNet-101. Every phase prints one line; any failure raises and exits
-non-zero. The last line is {"ok": true, "device": {...}}.
+ResNet-101. Serving: the stream step and the Joint step (default warp;
+plane-mix warp with the attention kernel) are exported on the card by
+tools/export_serving.py (oracle-checked there), loaded back and streamed
+beside the live runners in turns, and a small artifact exported on the
+CPU is loaded onto the card, where its op nodes must launch the kernels.
+Last, the release flow: the training checkpoint of the full-width path
+through tools/export_torch.py, `export_serving --ckpt --verify 4` and
+tools/rehearse_release_ckpt.py's convert, eval and score steps on the
+ScanNet-layout scene. Every phase prints one line; any failure raises and
+exits non-zero. The last line is {"ok": true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
 queued while the device is held busy, one CUDA event pair per run; where a
@@ -45,6 +53,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from estdepth_tpu_torch import serving
 from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
 from estdepth_tpu_torch.data import io_utils, native
 from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
@@ -72,7 +82,10 @@ from estdepth_tpu_torch.ops.cuda import (
     two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
-from estdepth_tpu_torch.tools import eval_estm, eval_joint, score_offline
+from estdepth_tpu_torch.tools import (
+    eval_estm, eval_joint, export_serving, export_torch,
+    rehearse_release_ckpt, score_offline,
+)
 from estdepth_tpu_torch.tools import train as train_tool
 from estdepth_tpu_torch.tools.eval_estm import run_synthetic
 from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
@@ -115,7 +128,17 @@ KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
            "two_pass_resample": two_pass.KERNEL,
            "frustum_warp_plane_mix": plane_mix.KERNEL,
            "epipolar_attention": epipolar_attention.KERNEL}
+# each kernel's torch.library op (ops/cuda/library.py)
+OPS = {"plane_sweep_warp": "estdepth::plane_sweep_sample",
+       "frustum_warp_exact_z": "estdepth::exact_z_resample",
+       "two_pass_resample": "estdepth::two_pass_resample",
+       "frustum_warp_plane_mix": "estdepth::plane_mix_resample",
+       "epipolar_attention": "estdepth::epipolar_attention"}
 WINDOW_SWEEPS = ([0, 2, 1, 3, 2, 4], [1, 1, 2, 2, 3, 3])  # (src, ref) frames
+# serving artifacts: the maps the eval tools score (refined, fused head);
+# frames (Joint: windows) of the export tool's oracle check
+SERVING_SCALES, VERIFY_FRAMES, VERIFY_WINDOWS = (0, 2), 8, 2
+RELEASE_VERIFY_FRAMES = 4
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -870,12 +893,285 @@ def phase_joint_path(rows: list[dict]) -> None:
             row["launches_by_path"][path] = launches[row["name"]]
 
 
-def phase_train_path(rows: list[dict]) -> dict:
+def _timed_outputs(runner, frames) -> tuple[list, list]:
+    """Frames through `runner.push_frame` after a reset: per output, the
+    seconds from the first push since the previous output to the fetched
+    maps (the uploads of a window's new frames, its step and the fetch),
+    and the maps on the host."""
+    runner.reset()
+    times, maps, t0 = [], [], None
+    for f in frames:
+        if t0 is None:
+            t0 = time.perf_counter()
+        out = runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
+        if out is None:
+            continue
+        maps.append(out.float().cpu())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        t0 = None
+    return times, maps
+
+
+class _JointFeed:
+    """tools/eval_joint's JointRunner fed frame by frame: each completed
+    window (seq_length frames, advancing by seq_length - 2) goes through
+    `run_window` and returns the depths of `scales`."""
+
+    def __init__(self, runner, seq_length: int, scales):
+        self.runner, self.seq_length = runner, seq_length
+        self.scales = list(scales)
+        self.frames = []
+
+    def reset(self) -> None:
+        self.runner.reset()
+        self.frames = []
+
+    def push_frame(self, img, pose, intr):
+        self.frames.append((img, pose))
+        if len(self.frames) < self.seq_length:
+            return None
+        imgs = np.stack([f[0] for f in self.frames])[None]
+        poses = np.stack([f[1] for f in self.frames])[None]
+        depth = self.runner.run_window(imgs, poses, intr[None])[0]
+        del self.frames[:self.seq_length - 2]
+        return depth[:, :, self.scales]
+
+
+def _artifact_against_live(path: str, artifact, live, frames,
+                           expected: dict) -> dict:
+    """A loaded artifact and its live runner over the same frames in turns
+    (artifact, live, live, artifact): the artifact's first pass between a
+    reset and a read of the kernel counts, max |artifact - live| over its
+    maps, and each runner's steady-state ms per output (the median of the
+    outputs after the first two, over both of its passes)."""
+    _reset_counts()
+    a1, maps = _timed_outputs(artifact, frames)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    if launches != {**dict.fromkeys(KERNELS, 0), **expected}:
+        raise AssertionError(f"{path}: kernel launches {launches}, "
+                             f"expected {expected}")
+    l1, want = _timed_outputs(live, frames)
+    l2, _ = _timed_outputs(live, frames)
+    a2, _ = _timed_outputs(artifact, frames)
+    err = max((a - b).abs().max().item() for a, b in zip(maps, want))
+    if not (len(maps) == len(want) and all(torch.isfinite(m).all()
+                                           for m in maps)):
+        raise AssertionError(f"{path}: {len(maps)} maps against "
+                             f"{len(want)}, or not finite")
+    ms = {name: 1e3 * statistics.median(t[2:] + u[2:])
+          for name, t, u in (("artifact", a1, a2), ("live", l1, l2))}
+    return {"launches": launches, "outputs": len(maps), "max_abs_err": err,
+            "ms_artifact": ms["artifact"], "ms_live": ms["live"],
+            "ratio_artifact_to_live": ms["artifact"] / ms["live"],
+            "times_ms": {"artifact": [1e3 * t for t in a1 + a2],
+                         "live": [1e3 * t for t in l1 + l2]}}
+
+
+def _export_flags(seed: int = 0) -> list[str]:
+    return ["--height", str(HEIGHT), "--width", str(WIDTH), "--ndepths",
+            str(NDEPTHS), "--depth-min", str(DEPTH_MIN), "--depth-max",
+            str(DEPTH_MAX), "--resnet", "50", "--seed", str(seed),
+            "--scales", ",".join(map(str, SERVING_SCALES))]
+
+
+def _exported(out: str, argv: list[str]) -> dict:
+    """export_serving's main on the card, then the artifact loaded back
+    (timed apart): the tool's numbers with the load's seconds."""
+    res = export_serving.main(["--out", out, *argv])
+    t0 = time.perf_counter()
+    load = serving.load_joint if "--joint" in argv else serving.load_stream
+    runner = load(out)
+    return {"export_s": res["export_s"], "artifact_mb": res["bytes"] / 1e6,
+            "load_s": time.perf_counter() - t0,
+            "verify_max_abs_delta": res["max_abs_delta"], "runner": runner}
+
+
+def phase_serving(rows: list[dict]) -> None:
+    """Serving artifacts on the card (estdepth_tpu_torch/serving.py), at
+    the flagship width, random weights from seed 0, through
+    tools/export_serving.py's own `main` (exported on the card, verified
+    by the tool, loaded back), so that all five kernels launch from loaded
+    programs:
+
+      * the ESTM stream step (`--verify 8`), streamed over phase_main_path's
+        8-frame scene beside an ESTMRunner in turns;
+      * the Joint window step (`--joint --verify 2`), once at the default
+        warp and once with `--no-exact-z --fused-attention`, over the
+        17-frame scene of phase_joint_path beside a JointRunner;
+      * the stream step with the two-pass plane sweep (kernel 3);
+      * no hidden fallback: a small artifact exported on the CPU (ResNet-18,
+        D = 8, 64x96) and loaded onto the card launches kernels 1 and 2 and
+        gives a card ESTMRunner's maps within 1e-5.
+
+    Every kernel's count is set to 0 just before an artifact's first pass
+    and read just after."""
+    cfg = SyntheticSceneConfig(height=HEIGHT, width=WIDTH, seed=0)
+    targets = SEQ_LENGTH - 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        runs = {"serving_stream": (
+            ["--verify", str(VERIFY_FRAMES)], FRAMES,
+            {"plane_sweep_warp": FRAMES - LWINDOW + 1,
+             "frustum_warp_exact_z": FRAMES - LWINDOW})}
+        est_windows = (JOINT_WINDOWS - 1) * targets
+        joint_frames = (JOINT_WINDOWS - 1) * targets + SEQ_LENGTH
+        runs["serving_joint"] = (
+            ["--joint", "--verify", str(VERIFY_WINDOWS)], joint_frames,
+            {"plane_sweep_warp": JOINT_WINDOWS,
+             "frustum_warp_exact_z": est_windows})
+        runs["serving_joint_plane_mix_fused_attention"] = (
+            ["--joint", "--verify", str(VERIFY_WINDOWS), "--no-exact-z",
+             "--fused-attention"], joint_frames,
+            {"plane_sweep_warp": JOINT_WINDOWS,
+             "frustum_warp_plane_mix": est_windows,
+             "epipolar_attention": est_windows})
+        for path, (argv, n_frames, expected) in runs.items():
+            out = os.path.join(tmp, path)
+            art = _exported(out, argv + _export_flags())
+            model = DepthNetHybrid(ModelConfig(
+                ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+                resnet=50,
+                frustum_mode=("plane_mix" if "--no-exact-z" in argv
+                              else "plane_mix_exact_z"),
+                use_fused_attention="--fused-attention" in argv), seed=0)
+            if "--joint" in argv:
+                live = _JointFeed(eval_joint.JointRunner(model,
+                                                         device="cuda"),
+                                  SEQ_LENGTH, SERVING_SCALES)
+            else:
+                live = ESTMRunner(model, HEIGHT, WIDTH, LWINDOW, MEMORY,
+                                  output_scales=SERVING_SCALES,
+                                  device="cuda")
+            frames = list(synthetic_stream(cfg, n_frames, DEPTH_MIN,
+                                           DEPTH_MAX))
+            res = _artifact_against_live(path, art.pop("runner"), live,
+                                         frames, expected)
+            log("serving", path=path, **art, **res)
+            for row in rows:
+                row["launches_by_path"][path] = res["launches"][row["name"]]
+            del live, model
+            shutil.rmtree(out)
+            torch.cuda.empty_cache()
+        _two_pass_artifact(rows, os.path.join(tmp, "two_pass"), cfg)
+        _cpu_exported_artifact(os.path.join(tmp, "cpu_exported"))
+
+
+def _two_pass_artifact(rows: list[dict], out: str, cfg) -> None:
+    """The stream step with the two-pass plane sweep (kernel 3), which the
+    export tool has no flag for: exported on the card through
+    serving.export_stream, loaded back and streamed beside an ESTMRunner
+    of the same model."""
+    path = "serving_stream_two_pass_warp"
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50, two_pass_warp=True), seed=0)
+    t0 = time.perf_counter()
+    nbytes = serving.export_stream(model, height=HEIGHT, width=WIDTH,
+                                   output_scales=SERVING_SCALES).save(out)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = serving.load_stream(out)
+    load_s = time.perf_counter() - t0
+    live = ESTMRunner(model, HEIGHT, WIDTH, LWINDOW, MEMORY,
+                      output_scales=SERVING_SCALES, device="cuda")
+    res = _artifact_against_live(
+        path, runner, live,
+        list(synthetic_stream(cfg, FRAMES, DEPTH_MIN, DEPTH_MAX)),
+        {"two_pass_resample": FRAMES - LWINDOW + 1,
+         "frustum_warp_exact_z": FRAMES - LWINDOW})
+    log("serving", path=path, export_s=export_s, artifact_mb=nbytes / 1e6,
+        load_s=load_s, **res)
+    for row in rows:
+        row["launches_by_path"][path] = res["launches"][row["name"]]
+
+
+def _cpu_exported_artifact(out: str) -> None:
+    """The small stream artifact exported on the CPU, loaded onto the card
+    (torch.export's move to the device), against a card ESTMRunner."""
+    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18)
+    t0 = time.perf_counter()
+    serving.export_stream(DepthNetHybrid(cfg, seed=0), height=64, width=96,
+                          output_scales=SERVING_SCALES, device="cpu").save(
+        out)
+    export_s = time.perf_counter() - t0
+    runner = serving.load_stream(out, device="cuda")
+    live = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
+                      output_scales=SERVING_SCALES, device="cuda")
+    frames = _pitched_frames(7)
+    before = _read_counts()
+    _, maps = _timed_outputs(runner, frames)
+    torch.cuda.synchronize()
+    grown = {k: n - before[k] for k, n in _read_counts().items()}
+    _, want = _timed_outputs(live, frames)
+    err = max((a - b).abs().max().item() for a, b in zip(maps, want))
+    expected = {**dict.fromkeys(KERNELS, 0), "plane_sweep_warp": 5,
+                "frustum_warp_exact_z": 4}
+    log("serving_cpu_exported", manifest_device=runner.manifest["device"],
+        export_s=export_s, launches=grown, max_abs_err=err, atol=1e-5)
+    if grown != expected:
+        raise AssertionError(f"CPU-exported artifact on the card: launches "
+                             f"{grown}, expected {expected}")
+    if not (len(maps) == len(want) == 5 and err <= 1e-5):
+        raise AssertionError(f"CPU-exported artifact on the card: max abs "
+                             f"err {err} over {len(maps)} maps")
+
+
+def phase_release(rows: list[dict], train_ckpt: str) -> None:
+    """The release flow on the card: phase_train_path's checkpoint (4
+    flagship steps of tools/train.py) through tools/export_torch.py into a
+    reference .ckpt, that .ckpt through `export_serving --ckpt --verify 4`,
+    and the rehearsal's convert, eval (`eval_estm --ckpt --save-maps`) and
+    score steps on the ScanNet-layout scene of phase_dataset_path. Every
+    kernel's count is set to 0 just before the rehearsal and read just
+    after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_release_") as tmp:
+        ckpt = os.path.join(tmp, "model.ckpt")
+        exported = export_torch.main(["--ckpt", train_ckpt, "--out", ckpt])
+        state = load_reference_checkpoint(ckpt, strict=True)[0]
+        art = _exported(os.path.join(tmp, "estm"),
+                        ["--ckpt", ckpt, "--verify",
+                         str(RELEASE_VERIFY_FRAMES), *_export_flags()])
+        del art["runner"]
+        data, _ = _write_dataset(tmp)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _without_opencv():
+            summary = rehearse_release_ckpt.main([
+                "--ckpt", ckpt, "--datapath", data, "--frame-interval",
+                str(SCENE_INTERVAL), "--outdir", os.path.join(tmp, "out"),
+                "--height", str(HEIGHT), "--width", str(WIDTH),
+                "--ndepths", str(NDEPTHS), "--depth-min", str(DEPTH_MIN),
+                "--depth-max", str(DEPTH_MAX), "--resnet", "50",
+                "--max-frames", "100"])
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    steps = SCENE_FRAMES // SCENE_INTERVAL - 1 - LWINDOW + 1
+    if launches != {**dict.fromkeys(KERNELS, 0), "plane_sweep_warp": steps,
+                    "frustum_warp_exact_z": steps - 1}:
+        raise AssertionError(f"release: kernel launches {launches}")
+    if summary["eval"]["frames"] != steps:
+        raise AssertionError(f"release: {summary['eval']['frames']} frames")
+    for k in ("abs_relative", "rmse"):
+        tool, offline = summary["eval"]["metrics"][k], summary["score"][k]
+        if not abs(offline - tool) <= DUMP_REL_TOL * tool:
+            raise AssertionError(f"release: score_offline {k} {offline} "
+                                 f"against the tool's {tool}")
+    log("release", export_torch=exported, tensors=len(state),
+        convert=summary["convert"], **art, launches=launches,
+        eval_metrics=summary["eval"]["metrics"],
+        score_offline={k: summary["score"][k] for k in
+                       ("abs_relative", "rmse")})
+    for row in rows:
+        row["launches_by_path"]["release"] = launches[row["name"]]
+
+
+def phase_train_path(rows: list[dict], keep_ckpt: str) -> dict:
     """The training step at the flagship width through tools/train.py's own
     loop (`run`): 256x320, D = 64, ResNet-50, 5-frame windows, batch 1, EST
     on, 1 warm-up step and 3 timed ones, once with the default plane sweep
     (kernel 1) and once through the two-pass resample (kernel 3). Every
     kernel's count is set to 0 just before each run and read just after.
+    The default run's checkpoint directory is copied to `keep_ckpt`.
     Returns each run's ms per step."""
     moved_prefixes = ("matchingFeature", "semanticFeature", "CostRegNet",
                       "pre0")
@@ -899,6 +1195,8 @@ def phase_train_path(rows: list[dict]) -> dict:
             torch.cuda.synchronize()
             launches = _read_counts()
             peak = torch.cuda.max_memory_allocated()
+            if not flags:
+                shutil.copytree(os.path.join(logdir, "ckpt"), keep_ckpt)
         records = res["records"]
         if [r["step"] for r in records] != list(range(1, TRAIN_STEPS + 1)):
             raise AssertionError(f"{path}: steps {records}")
@@ -1352,10 +1650,15 @@ def main() -> None:
     phase_reference_train()
     main_ms = phase_main_path(rows)
     phase_joint_path(rows)
-    train_ms = phase_train_path(rows)
-    phase_dataset_path(rows, main_ms)
-    phase_train_dataset(rows, train_ms["train"])
+    phase_serving(rows)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        train_ckpt = os.path.join(tmp, "ckpt")
+        train_ms = phase_train_path(rows, train_ckpt)
+        phase_dataset_path(rows, main_ms)
+        phase_train_dataset(rows, train_ms["train"])
+        phase_release(rows, train_ckpt)
     for row in rows:  # every kernel ran on a main path
+        row["op"] = OPS[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"] > 0:
             raise AssertionError(f"{row['name']}: never launched on a main "

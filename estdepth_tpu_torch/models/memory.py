@@ -1,5 +1,10 @@
 """ESTM streaming state: a fixed-shape FIFO of key/value cost volumes (port
 of estdepth_tpu/models/memory.py; reference eval_hybrid_seq.py:70,190-193).
+
+`ESTMemory` crosses the boundary of an exported serving program
+(serving.py) as a pytree of its four tensors; `register_serialization`
+(run at import) names it for `torch.export` and lets `torch.load`'s
+weights-only reader rebuild it.
 """
 
 from __future__ import annotations
@@ -63,3 +68,23 @@ class ESTMemory:
             valid=torch.cat([self.valid[:, 1:],
                              torch.ones_like(self.valid[:, :1])], 1),
         )
+
+
+SERIALIZED_NAME = "estdepth_tpu_torch.models.memory.ESTMemory"
+_registered = False
+
+
+def register_serialization() -> None:
+    """Register ESTMemory with torch.export under SERIALIZED_NAME, and as a
+    class a weights-only load may rebuild (an exported program keeps its
+    example inputs). Registering again does nothing."""
+    global _registered
+    if _registered:
+        return
+    torch.export.register_dataclass(ESTMemory,
+                                    serialized_type_name=SERIALIZED_NAME)
+    torch.serialization.add_safe_globals([ESTMemory])
+    _registered = True
+
+
+register_serialization()

@@ -1,17 +1,19 @@
 """Kernel 5: the per-voxel epipolar attention, csrc/epipolar_attention.cu.
 
 Replaces estdepth_tpu/ops/pallas/epipolar_attention.py:epipolar_attention.
-On CUDA tensors `epipolar_attention` launches the kernel; on CPU tensors it
-runs `epipolar_attention_plain`, the counterpart of the JAX package's
-`epipolar_attention_reference` and the attention EpipolarTransformer runs
-by default.
+`epipolar_attention` calls the op `estdepth::epipolar_attention`
+(ops/cuda/library.py): on CUDA tensors it launches the kernel, on CPU
+tensors it runs `epipolar_attention_plain`, the counterpart of the JAX
+package's `epipolar_attention_reference` and the attention
+EpipolarTransformer runs by default.
 
 The wrapper takes the channels-last tensors the EST fusion has, not folded
 copies: the warped keys and values are the two channel halves of one
 warped [B, N, D, H, W, 2C] volume, and the kernel reads them in place
-through their strides. Where the JAX function falls back to its reference
-for a channel count its kernel cannot take, this wrapper raises: C must be
-16.
+through their strides, in an exported program too (the op takes views).
+The output is a new contiguous float32 tensor on either device. Where the
+JAX function falls back to its reference for a channel count its kernel
+cannot take, this wrapper raises: C must be 16.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.cuda import build, library
 
 _NEG_INF = -1e9
 CHANNELS = 16
@@ -52,19 +54,9 @@ def epipolar_attention_plain(target_key: torch.Tensor,
     return h / n_valid.reshape((-1,) + (1,) * (h.dim() - 1)).to(h.dtype)
 
 
-def epipolar_attention(target_key: torch.Tensor, warped_keys: torch.Tensor,
-                       warped_values: torch.Tensor,
-                       valid: torch.Tensor) -> torch.Tensor:
-    """target_key [B, D, H, W, C]; warped_keys / warped_values
-    [N, B, D, H, W, C] (views with a voxel pitch are read in place);
-    valid [N, B] bool -> [B, D, H, W, C] contiguous: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if target_key.device.type == "cpu":
-        return epipolar_attention_plain(target_key, warped_keys,
-                                        warped_values, valid)
-    if target_key.device.type != "cuda":
-        raise ValueError(f"epipolar_attention: unsupported device "
-                         f"{target_key.device}")
+def _launch(target_key: torch.Tensor, warped_keys: torch.Tensor,
+            warped_values: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
     dev = target_key.device
     if warped_keys.dim() != 6:
         raise ValueError(f"epipolar_attention: warped_keys "
@@ -96,3 +88,28 @@ def epipolar_attention(target_key: torch.Tensor, warped_keys: torch.Tensor,
                n, b, d * h * w, tk_batch, tk_pitch, k_lead[0], k_lead[1],
                k_pitch, torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def _plain_contiguous(target_key: torch.Tensor, warped_keys: torch.Tensor,
+                      warped_values: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    return epipolar_attention_plain(target_key, warped_keys, warped_values,
+                                    valid).float().contiguous()
+
+
+def _fake(target_key, warped_keys, warped_values, valid):
+    return target_key.new_empty(target_key.shape, dtype=torch.float32)
+
+
+OP = library.define("epipolar_attention", _plain_contiguous, _launch, _fake)
+
+
+def epipolar_attention(target_key: torch.Tensor, warped_keys: torch.Tensor,
+                       warped_values: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """target_key [B, D, H, W, C]; warped_keys / warped_values
+    [N, B, D, H, W, C] (views with a voxel pitch are read in place);
+    valid [N, B] bool -> [B, D, H, W, C] contiguous: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    library.check_device("epipolar_attention", target_key)
+    return OP(target_key, warped_keys, warped_values, valid)

@@ -1,8 +1,9 @@
 """Kernel 4: the plane-mix frustum resample, csrc/frustum_warp_plane_mix.cu.
 
 Replaces estdepth_tpu/ops/pallas/plane_warp.py:frustum_warp_pallas (the
-lane-gather z-mix kernel plus the two-pass resample). On a CUDA tensor
-`plane_mix_resample` launches the kernel; on a CPU tensor it runs the plain
+lane-gather z-mix kernel plus the two-pass resample). `plane_mix_resample`
+calls the op `estdepth::plane_mix_resample` (ops/cuda/library.py): on a
+CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
 PyTorch version below, which is ops/warp._frustum_warp_planemix of the JAX
 package: the z-mix per SOURCE pixel, then one bilinear sample per voxel at
 the exact (x, y). The zi field is computed in PyTorch by the caller
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.cuda import build, library
 from estdepth_tpu_torch.ops.sampling import bilinear_sample
 from estdepth_tpu_torch.ops.warp_exact_z import EPS
 
@@ -68,29 +69,12 @@ def plane_mix_resample_plain(volume: torch.Tensor, zi: torch.Tensor,
     return out.reshape(b, d, h, w, c)
 
 
-def plane_mix_resample(volume: torch.Tensor, zi: torch.Tensor,
-                       x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
-    -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    if volume.device.type == "cpu":
-        return plane_mix_resample_plain(volume, zi.detach(), x.detach(),
-                                        y.detach())
-    if volume.device.type != "cuda":
-        raise ValueError(f"plane_mix_resample: unsupported device "
-                         f"{volume.device}")
+def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
     b, d, h, w, c = volume.shape
     if c % 4 or d < 2:
         raise ValueError(f"plane_mix_resample: volume {tuple(volume.shape)} "
                          f"needs C % 4 == 0 and D >= 2")
-    return build.sample_with_plain_grad(
-        _launch, plane_mix_resample_plain, "frustum_warp_plane_mix", volume,
-        zi, x, y)
-
-
-def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
-            y: torch.Tensor) -> torch.Tensor:
-    b, d, h, w, c = volume.shape
     dev = volume.device
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require(zi, "zi", (b, d, h * w), dev)
@@ -102,3 +86,22 @@ def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
                out.data_ptr(), b, d, h, w, c,
                torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def _fake(volume, zi, x, y):
+    return volume.new_empty(volume.shape)
+
+
+OP = library.define("plane_mix_resample", plane_mix_resample_plain, _launch,
+                    _fake)
+
+
+def plane_mix_resample(volume: torch.Tensor, zi: torch.Tensor,
+                       x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
+    -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    library.check_device("plane_mix_resample", volume)
+    return build.sample_with_plain_grad(
+        OP, plane_mix_resample_plain, "frustum_warp_plane_mix", volume, zi,
+        x, y)

@@ -1,8 +1,9 @@
 """Kernel 1: the plane-sweep sample, csrc/plane_sweep_warp.cu.
 
 Replaces estdepth_tpu/ops/pallas/plane_warp.py:plane_sweep_warp_pallas.
-On a CUDA tensor `plane_sweep_sample` launches the kernel; on a CPU tensor
-it runs the plain PyTorch version (ops/sampling.bilinear_sample).
+`plane_sweep_sample` calls the op `estdepth::plane_sweep_sample`
+(ops/cuda/library.py): on a CUDA tensor it launches the kernel, on a CPU
+tensor it runs the plain PyTorch version (ops/sampling.bilinear_sample).
 
 Gradient, as the JAX package's `custom_vjp` (_psweep_bwd): the kernel is
 forward-only; the backward is autograd of the plain version with respect
@@ -16,7 +17,7 @@ import ctypes
 
 import torch
 
-from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.cuda import build, library
 from estdepth_tpu_torch.ops.sampling import bilinear_sample
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -31,27 +32,12 @@ def plane_sweep_sample_plain(src: torch.Tensor, x: torch.Tensor,
     return bilinear_sample(src, x, y).reshape(b, -1, h, w, c)
 
 
-def plane_sweep_sample(src: torch.Tensor, x: torch.Tensor,
-                       y: torch.Tensor) -> torch.Tensor:
-    """src [B, H, W, C] sampled at x, y [B, D*H*W] -> [B, D, H, W, C]:
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
-    if src.device.type == "cpu":
-        return plane_sweep_sample_plain(src, x.detach(), y.detach())
-    if src.device.type != "cuda":
-        raise ValueError(f"plane_sweep_sample: unsupported device "
-                         f"{src.device}")
-    b, h, w, c = src.shape
-    if c % 4 or x.dim() != 2 or x.shape[1] % (h * w):
-        raise ValueError(f"plane_sweep_sample: src {tuple(src.shape)} "
-                         f"(C % 4 == 0) with x {tuple(x.shape)} "
-                         f"([B, D*H*W])")
-    return build.sample_with_plain_grad(
-        _launch, plane_sweep_sample_plain, "plane_sweep_warp", src, x, y)
-
-
 def _launch(src: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor) -> torch.Tensor:
     b, h, w, c = src.shape
+    if c % 4:
+        raise ValueError(f"plane_sweep_sample: src {tuple(src.shape)}, the "
+                         f"kernel takes C % 4 == 0")
     d = x.shape[1] // (h * w)
     build.require(src, "src", (b, h, w, c), src.device, allow_grad=True)
     build.require(x, "x", (b, d * h * w), src.device)
@@ -61,3 +47,25 @@ def _launch(src: torch.Tensor, x: torch.Tensor,
         KERNEL(src.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
                b, d, h, w, c, torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def _fake(src, x, y):
+    b, h, w, c = src.shape
+    return src.new_empty((b, x.shape[1] // (h * w), h, w, c))
+
+
+OP = library.define("plane_sweep_sample", plane_sweep_sample_plain, _launch,
+                    _fake)
+
+
+def plane_sweep_sample(src: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """src [B, H, W, C] sampled at x, y [B, D*H*W] -> [B, D, H, W, C]:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    library.check_device("plane_sweep_sample", src)
+    b, h, w, c = src.shape
+    if x.dim() != 2 or x.shape[1] % (h * w):
+        raise ValueError(f"plane_sweep_sample: src {tuple(src.shape)} "
+                         f"with x {tuple(x.shape)} ([B, D*H*W])")
+    return build.sample_with_plain_grad(
+        OP, plane_sweep_sample_plain, "plane_sweep_warp", src, x, y)

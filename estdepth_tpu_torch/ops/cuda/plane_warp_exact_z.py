@@ -1,10 +1,16 @@
 """Kernel 2: the exact-z frustum resample, csrc/frustum_warp_exact_z.cu.
 
 Replaces estdepth_tpu/ops/pallas/plane_warp_exact_z.py:
-frustum_warp_exact_z_pallas. On a CUDA tensor `exact_z_resample` launches
-the kernel; on a CPU tensor it runs the plain PyTorch version
-(ops/warp_exact_z.resample_exact_z). The zi field is computed in PyTorch by
-the caller (ops/warp_exact_z.zi_field) and read by both.
+frustum_warp_exact_z_pallas. `exact_z_resample` calls the op
+`estdepth::exact_z_resample` (ops/cuda/library.py): on a CUDA tensor it
+launches the kernel, on a CPU tensor it runs the plain PyTorch version
+(ops/warp_exact_z.resample_exact_z). The zi field is computed in PyTorch
+by the caller (ops/warp_exact_z.zi_field) and read by both. `depth_min`
+and `depth_interval` are arguments of the op, so an exported program
+carries them as constants; the CUDA implementation turns the interval into
+the float32 reciprocal that PyTorch multiplies by when it divides a tensor
+by a scalar on the card, which keeps the kernel bit-equal to the plain
+version.
 
 The TPU function's packed bf16 transport of (A, s) has no counterpart: the
 kernel keeps A and s in registers. A bf16 model is not ported yet, and the
@@ -23,7 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
-from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.cuda import build, library
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,37 +39,13 @@ KERNEL = build.Kernel(
 )
 
 
-def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
-                     y: torch.Tensor, z: torch.Tensor, depth_min: float,
-                     depth_interval: float) -> torch.Tensor:
-    """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y and depth z
-    [B, D*H*W] -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    if volume.device.type == "cpu":
-        return resample_exact_z(volume, zi.detach(), x.detach(), y.detach(),
-                                z.detach(), depth_min, depth_interval)
-    if volume.device.type != "cuda":
-        raise ValueError(f"exact_z_resample: unsupported device "
-                         f"{volume.device}")
-    b, d, h, w, c = volume.shape
-    if c % 4 or d < 2:
-        raise ValueError(f"exact_z_resample: volume {tuple(volume.shape)} "
-                         f"needs C % 4 == 0 and D >= 2")
-
-    def plain(vol, *coords):
-        return resample_exact_z(vol, *coords, depth_min, depth_interval)
-
-    def launch(vol, *coords):
-        return _launch(vol, *coords, depth_min, depth_interval)
-
-    return build.sample_with_plain_grad(launch, plain, "frustum_warp_exact_z",
-                                        volume, zi, x, y, z)
-
-
 def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor, z: torch.Tensor, depth_min: float,
             depth_interval: float) -> torch.Tensor:
     b, d, h, w, c = volume.shape
+    if c % 4 or d < 2:
+        raise ValueError(f"exact_z_resample: volume {tuple(volume.shape)} "
+                         f"needs C % 4 == 0 and D >= 2")
     dev = volume.device
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require(zi, "zi", (b, d, h * w), dev)
@@ -78,3 +60,29 @@ def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
                float(depth_min), inv_interval,
                torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def _fake(volume, zi, x, y, z, depth_min, depth_interval):
+    return volume.new_empty(volume.shape)
+
+
+OP = library.define("exact_z_resample", resample_exact_z, _launch, _fake)
+
+
+def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, z: torch.Tensor, depth_min: float,
+                     depth_interval: float) -> torch.Tensor:
+    """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y and depth z
+    [B, D*H*W] -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    library.check_device("exact_z_resample", volume)
+    depth_min, depth_interval = float(depth_min), float(depth_interval)
+
+    def plain(vol, *coords):
+        return resample_exact_z(vol, *coords, depth_min, depth_interval)
+
+    def launch(vol, *coords):
+        return OP(vol, *coords, depth_min, depth_interval)
+
+    return build.sample_with_plain_grad(launch, plain, "frustum_warp_exact_z",
+                                        volume, zi, x, y, z)

@@ -9,9 +9,10 @@ x = a_w * h + b_w and pass 2 blends rows y0 and y0 + 1 of that image at the
 exact y. It equals the exact bilinear sample where the line is vertical
 (pure translations) and deviates by a sub-pixel amount under rotation.
 
-On a CUDA tensor `two_pass_resample` launches the kernel, which keeps no
-pass-1 image: pass 2 at (i, w) reads column w of it at rows y0 and
-y0 + 1 only, so the kernel computes those two values from four gathers of
+`two_pass_resample` calls the op `estdepth::two_pass_resample`
+(ops/cuda/library.py). On a CUDA tensor it launches the kernel, which
+keeps no pass-1 image: pass 2 at (i, w) reads column w of it at rows y0
+and y0 + 1 only, so the kernel computes those two values from four gathers of
 the source map and blends them, the same operations in the same order (bit
 for bit the two passes). On a CPU tensor it runs
 `two_pass_resample_plain`, the two passes written with `torch.gather`. The
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from estdepth_tpu_torch.ops.cuda import build
+from estdepth_tpu_torch.ops.cuda import build, library
 from estdepth_tpu_torch.ops.cuda.plane_warp import plane_sweep_sample_plain
 from estdepth_tpu_torch.ops.sampling import corner
 
@@ -98,6 +99,9 @@ def two_pass_resample_plain(src: torch.Tensor, ab: torch.Tensor,
 def _launch(src: torch.Tensor, ab: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor, planes_per_map: int) -> torch.Tensor:
     m, h, w, c = src.shape
+    if c % 4:
+        raise ValueError(f"two_pass_resample: C = {c}, the kernel takes "
+                         f"C % 4 == 0")
     p = m * planes_per_map
     dev = src.device
     build.require(src, "src", (m, h, w, c), dev, allow_grad=True)
@@ -112,31 +116,34 @@ def _launch(src: torch.Tensor, ab: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def _fake(src, ab, x, y, planes_per_map):
+    m, h, w, c = src.shape
+    return src.new_empty((m * planes_per_map, h, w, c))
+
+
+OP = library.define("two_pass_resample", two_pass_resample_plain, _launch,
+                    _fake)
+
+
 def two_pass_resample(src: torch.Tensor, ab: torch.Tensor, x: torch.Tensor,
                       y: torch.Tensor, planes_per_map: int) -> torch.Tensor:
     """src [M, H, W, C], ab [P, 2, W], exact source x, y [P, H*W] with
     P = M * planes_per_map -> [P, H, W, C]: the kernel on CUDA tensors, the
     plain version on CPU tensors; the gradient for `src` is the exact
     bilinear sample's on both (module doc)."""
-    if src.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"two_pass_resample: unsupported device "
-                         f"{src.device}")
+    library.check_device("two_pass_resample", src)
     m, h, w, c = src.shape
     if (planes_per_map < 1 or ab.shape[0] != m * planes_per_map
             or min(h, w) < 2):
         raise ValueError(f"two_pass_resample: src {tuple(src.shape)} "
                          f"(H, W >= 2) with ab {tuple(ab.shape)} and "
                          f"planes_per_map {planes_per_map}")
-    if src.device.type == "cuda" and c % 4:
-        raise ValueError(f"two_pass_resample: C = {c}, the kernel takes "
-                         f"C % 4 == 0")
-    forward = two_pass_resample_plain if src.device.type == "cpu" else _launch
 
     def exact(s, xs, ys):  # [M, ppm*H*W] coordinates of each map's planes
         out = plane_sweep_sample_plain(s, xs.reshape(m, -1), ys.reshape(m, -1))
         return out.reshape(-1, h, w, c)
 
     return build.sample_with_plain_grad(
-        lambda s, a, xs, ys: forward(s, a, xs, ys, planes_per_map),
+        lambda s, a, xs, ys: OP(s, a, xs, ys, planes_per_map),
         lambda s, a, xs, ys: exact(s, xs, ys),
         "two_pass_resample", src, ab, x, y)

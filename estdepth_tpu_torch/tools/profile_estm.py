@@ -3,7 +3,7 @@
     python -m estdepth_tpu_torch.tools.profile_estm
         [--protocol estm|joint|train] [--frames 8]
         [--no-exact-z | --exact-warp] [--fused-attention] [--two-pass-warp]
-        [--trace DIR]
+        [--serving] [--trace DIR]
 
 Runs one synthetic scene at the eval defaults (256x320, D = 64, ResNet-50,
 float32, random weights) through ESTMRunner (lwindow 3, memory 2; a step
@@ -11,13 +11,19 @@ is one frame) or, with --protocol joint, through JointRunner (5-frame
 windows advancing by 3, a 1-entry memory; a step is one window of 3
 targets), or, with --protocol train, through the training step of
 train/trainer.py on 5-frame windows at batch 1 (a step is one optimizer
-update; the result fetched is the loss). Warms up on the first steps, times --frames steady-state steps
+update; the result fetched is the loss). With --serving (estm or joint)
+the step is exported first (serving.export_stream / export_joint, all 4
+depth scales, as the live runners return them), saved, loaded back and
+fed the scene's frames one by one: a step is then the frames a window
+adds (1, or 3 for Joint). Warms up on the first steps, times --frames
+steady-state steps
 without the profiler (the median step, and how much of it the host spends
 issuing the step's launches before it waits for the result), then records
 --frames more with torch.profiler. Prints one JSON line: those two times,
 host ms per step under the profiler, device-busy ms per step (the sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
-share, the share of each kernel group, and the top kernels by device time.
+share, the share of each kernel group, the top kernels by device time and
+the top host operators by their own host time.
 For a training step it also prints, per warp, the device time of the
 backward (`estdepth::<kernel>_backward` ranges: autograd of the plain
 version, many PyTorch kernels) beside the forward kernel's.
@@ -32,6 +38,7 @@ import argparse
 import json
 import re
 import statistics
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -39,6 +46,7 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from estdepth_tpu_torch import serving
 from estdepth_tpu_torch.config import (
     ModelConfig, add_model_flags, resolve_frustum_mode, set_fp32_numerics,
 )
@@ -91,8 +99,13 @@ def main(argv=None) -> None:
     add_model_flags(p)
     p.add_argument("--two-pass-warp", action="store_true",
                    help="plane sweep through the fused two-pass resample")
+    p.add_argument("--serving", action="store_true",
+                   help="profile the exported step (estm or joint) loaded "
+                        "back from disk instead of the live runner")
     p.add_argument("--trace", type=str, default=None)
     args = p.parse_args(argv)
+    if args.serving and args.protocol == "train":
+        raise SystemExit("profile_estm: --serving profiles estm or joint")
     if not torch.cuda.is_available():
         raise SystemExit("profile_estm: needs a CUDA device")
     set_fp32_numerics()
@@ -102,7 +115,23 @@ def main(argv=None) -> None:
         use_fused_attention=args.fused_attention,
         two_pass_warp=args.two_pass_warp))
     n_steps = args.warmup + 2 * args.frames
-    if args.protocol == "estm":
+    if args.serving:
+        runner = _load_exported(model, cfg, args.protocol)
+        window = runner.window
+        stream = list(synthetic_stream(
+            cfg, window + (n_steps - 1) * runner.stride))
+        # a step: the frames a window adds (the first window: all of them)
+        frames = [stream[:window]] + [
+            stream[window + i * runner.stride:
+                   window + (i + 1) * runner.stride]
+            for i in range(n_steps - 1)]
+
+        def issue(group):
+            for f in group:
+                out = runner.push_frame(f["img"], f["cam_pose"],
+                                        f["cam_intr"])
+            return out
+    elif args.protocol == "estm":
         runner = ESTMRunner(model, cfg.height, cfg.width, device="cuda")
         frames = list(synthetic_stream(cfg, n_steps))
 
@@ -166,6 +195,9 @@ def main(argv=None) -> None:
             backward[e.name][0] += e.device_time_total / 1e3
             backward[e.name][1] += 1
     busy = sum(t for t, _ in kernels.values())
+    host_ops = sorted(
+        (e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+        key=lambda e: -e.self_cpu_time_total)[:15]
     groups = defaultdict(float)
     for name, (t, _) in kernels.items():
         groups[group_of(name)] += t
@@ -175,6 +207,7 @@ def main(argv=None) -> None:
         "protocol": args.protocol,
         "frustum_mode": model.cfg.frustum_mode,
         "fused_attention": model.cfg.use_fused_attention,
+        "serving": args.serving,
         "two_pass_warp": model.cfg.two_pass_warp,
         "frames": n,
         "unprofiled_ms_per_frame": step_ms,
@@ -192,11 +225,30 @@ def main(argv=None) -> None:
         "top_kernels": [{"name": name[:120], "ms_per_frame": t / n,
                          "calls_per_frame": c / n}
                         for name, (t, c) in top],
+        "top_host_ops": [{"name": e.key[:120],
+                          "self_host_ms_per_frame":
+                              e.self_cpu_time_total / 1e3 / n,
+                          "calls_per_frame": e.count / n}
+                         for e in host_ops],
     }))
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(
             str(Path(args.trace) / f"{args.protocol}_trace.json"))
+
+
+def _load_exported(model, cfg, protocol: str):
+    """The model's window step exported on the card, saved and loaded
+    back: the runner a deployment uses."""
+    export = (serving.export_joint if protocol == "joint"
+              else serving.export_stream)
+    art = export(model, height=cfg.height, width=cfg.width,
+                 output_scales=(0, 1, 2, 3), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        art.save(tmp)
+        load = (serving.load_joint if protocol == "joint"
+                else serving.load_stream)
+        return load(tmp, device="cuda")
 
 
 if __name__ == "__main__":

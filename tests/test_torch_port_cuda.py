@@ -3,7 +3,7 @@
 Marked `cuda`: each test skips where no CUDA device is present (decided in
 the fixture, not at import). On a machine with the card:
 
-    python -m pytest tests/test_torch_port_cuda.py -m cuda
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
 The four warp kernels repeat their plain version's arithmetic operation
 by operation (no FMA contraction): the plane sweep and the two-pass
@@ -18,7 +18,10 @@ The attention kernel sums its 16 channels and its softmax in another order
 than PyTorch's reductions, so it is held to rtol 1e-5 / atol 1e-6, the
 tolerance the JAX package holds its TPU kernel to (tests/test_pallas.py).
 The ESTM tool's dataset path (a scene written by data/png.py, a reference
-checkpoint) is held against its CPU run at the chain tolerance 8e-3.
+checkpoint) is held against its CPU run at the chain tolerance 8e-3. A
+serving artifact exported on the CPU and loaded onto the card launches
+the kernels from its op nodes and equals a card ESTMRunner within 1e-5.
+Without JAX on the card's machine, run with `--noconftest`.
 """
 
 from __future__ import annotations
@@ -406,3 +409,40 @@ def test_dataset_eval_on_the_card_matches_cpu(dev, tmp_path):
         assert got[k].device.type == dev.type
         np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(),
                                    rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_cpu_exported_artifact_launches_the_kernels_on_the_card(dev,
+                                                               tmp_path):
+    """A stream artifact exported on the CPU and loaded onto the card: its
+    op nodes launch kernels 1 and 2 there (one sweep per window, one
+    frustum warp per EST window), never the plain version, and its maps
+    equal a card ESTMRunner's within 1e-5."""
+    from estdepth_tpu_torch import serving
+    from estdepth_tpu_torch.config import ModelConfig
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_stream,
+    )
+    from estdepth_tpu_torch.eval.estm import ESTMRunner
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18)
+    serving.export_stream(DepthNetHybrid(cfg, seed=0), height=64, width=96,
+                          output_scales=(0, 2), device="cpu").save(
+        str(tmp_path))
+    runner = serving.load_stream(str(tmp_path), device=dev)
+    live = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
+                      output_scales=(0, 2), device=dev)
+    frames = list(synthetic_stream(SyntheticSceneConfig(
+        height=64, width=96, focal=80.0), 6, 0.5, 8.0))
+    kernels = (plane_warp.KERNEL, plane_warp_exact_z.KERNEL)
+    before = [k.launches for k in kernels]
+    got = [out for f in frames if (out := runner.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    assert [k.launches - n for k, n in zip(kernels, before)] == [4, 3]
+    want = [out for f in frames if (out := live.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
