@@ -10,13 +10,13 @@ plain versions; checks the plane-sweep kernel against the analytic depth of
 a synthetic scene; holds a small ESTM stream, a small Joint chain and three
 small training steps on the card against the plain path on the CPU; and
 drives three paths at full width (256x320, D = 64, ResNet-50, float32,
-random weights from a seed) through the kernels: the ESTM streaming step
-(lwindow 3, memory 2), the Joint window chain (5 frames in, 3 depth maps
-out, a 1-entry memory; once with the default warp and once with the
-plane-mix warp and the attention kernel), and the training step of
-tools/train.py (5-frame windows, batch 1, EST on; once with the default
-plane sweep and once through the fused two-pass resample). Last, the
-dataset path: a scene written in ScanNet's layout (640x480 PNGs, one
+random weights from a seed; bf16 below) through the kernels: the ESTM
+streaming step (lwindow 3, memory 2), the Joint window chain (5 frames
+in, 3 depth maps out, a 1-entry memory; once with the default warp and
+once with the plane-mix warp and the attention kernel), and the training
+step of tools/train.py (5-frame windows, batch 1, EST on; once with the
+default plane sweep and once through the fused two-pass resample). Last,
+the dataset path: a scene written in ScanNet's layout (640x480 PNGs, one
 non-finite pose) and a reference-format checkpoint of the seed-0 model go
 through the ESTM and Joint eval tools' own `run` (maps saved, ground
 truth scored at 640x480) and tools/score_offline.py rescores the ESTM
@@ -35,8 +35,17 @@ CPU is loaded onto the card, where its op nodes must launch the kernels.
 Last, the release flow: the training checkpoint of the full-width path
 through tools/export_torch.py, `export_serving --ckpt --verify 4` and
 tools/rehearse_release_ckpt.py's convert, eval and score steps on the
-ScanNet-layout scene. Every phase prints one line; any failure raises and
-exits non-zero. The last line is {"ok": true, "device": {...}}.
+ScanNet-layout scene. The bf16 model (ModelConfig.compute_dtype
+"bfloat16", the tools' --bf16): each kernel row also holds its bf16
+instance against the plain bf16 version (kernels 1 to 4 bit for bit, the
+attention kernel within one bf16 ulp) and times it in turns with the
+float32 instance and, where the row has one, the library call on the
+bf16 inputs; a small bf16 stream on the card is held against the CPU;
+and the ESTM stream, both Joint chains, the training step and a bf16
+stream artifact run at full width through the bf16 instances, each in
+turns with the float32 model. Every phase prints one line; any failure
+raises and exits non-zero. The last line is {"ok": true, "device":
+{...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
 queued while the device is held busy, one CUDA event pair per run; where a
@@ -65,7 +74,9 @@ import torch
 import torch.nn.functional as F
 
 from estdepth_tpu_torch import serving
-from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
+from estdepth_tpu_torch.config import (
+    ModelConfig, set_fp32_numerics, torch_dtype,
+)
 from estdepth_tpu_torch.data import io_utils, native
 from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
 from estdepth_tpu_torch.data.eval_windows import WindowEvalDataset
@@ -206,17 +217,18 @@ def batch_ms(fn, launches: int = LAUNCHES, reps: int = 5) -> float:
     return statistics.median(_batch(fn, launches, host) for _ in range(reps))
 
 
-def turns_ms(kern, library, launches: int = LAUNCHES,
-             rounds: int = 5) -> tuple[float, float]:
-    """Device ms per call of kern() and of library(), timed in turns in
-    runs of `launches` calls (kernel, library, library, kernel in every
-    round) so that both see the same clocks: the medians of each."""
-    host = {fn: _host_ms(fn, launches) for fn in (kern, library)}
-    times = {kern: [], library: []}
+def turns_ms(*fns, launches: int = LAUNCHES, rounds: int = 5) -> tuple:
+    """Device ms per call of each of fns, timed in turns in runs of
+    `launches` calls (the functions in order and then in reverse in every
+    round: kernel, library, library, kernel for two) so that all see the
+    same clocks: the medians of each."""
+    host = [_host_ms(fn, launches) for fn in fns]
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
     for _ in range(rounds):
-        for fn in (kern, library, library, kern):
-            times[fn].append(_batch(fn, launches, host[fn]))
-    return statistics.median(times[kern]), statistics.median(times[library])
+        for i in order + order[::-1]:
+            times[i].append(_batch(fns[i], launches, host[i]))
+    return tuple(statistics.median(t) for t in times)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -294,6 +306,57 @@ def _measure(name: str, kern, plain, moved: int, flops: float,
     return m
 
 
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x|."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def _bf16_entry(name: str, kern, plain, f32_kern, moved: int,
+                flops: float, library=None) -> dict:
+    """A kernel's bf16 instance at the shapes of its row: kern() (bf16
+    inputs) against plain() (the plain bf16 version: upcast, the float32
+    plain version, one rounding), bit for bit for kernels 1 to 4 and
+    within one bf16 ulp of the output's scale for the attention kernel,
+    whose float32 sums run in another order; timed in turns with the
+    float32 instance f32_kern() on the float32 inputs of the row and,
+    where one is given, the PyTorch call library() on the bf16 inputs
+    (bf16, f32, library, library, f32, bf16 in every round), and the
+    bound of its `moved` bytes (the volume's halve, the float32
+    coordinates' do not)."""
+    out_k, out_p = kern(), plain()
+    if not out_k.dtype == out_p.dtype == torch.bfloat16:
+        raise AssertionError(f"{name} bf16: {out_k.dtype}, {out_p.dtype}")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    m = {"shape": list(out_k.shape), "max_abs_err": err,
+         "max_rel_err": err / out_p.float().abs().max().item()}
+    if name == "epipolar_attention":
+        # the two float32 sums differ in their last bits, and where a
+        # value cancels to near zero that is more than its own ulp: held
+        # to one bf16 ulp at the output's scale
+        ulp = _bf16_ulp(out_p.float().abs().max().item())
+        m["max_err_in_ulps_of_scale"] = err / ulp
+        if not err <= ulp:
+            raise AssertionError(f"{name} bf16: {err} from its plain "
+                                 f"version, more than one ulp ({ulp})")
+    else:
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name} bf16: kernel differs from its "
+                                 f"plain version at {m['shape']}")
+        m["bit_equal"] = True
+    del out_k, out_p
+    if library is None:
+        m["ms"], m["f32_ms_same_run"] = turns_ms(kern, f32_kern)
+        m["library_ms"] = None
+    else:
+        m["ms"], m["f32_ms_same_run"], m["library_ms"] = turns_ms(
+            kern, f32_kern, library)
+    m["plain_ms"] = batch_ms(plain, reps=3)
+    m["bound_ms"], m["bound_by"] = bound_ms(moved, flops)
+    m["tb_per_s"] = moved / m["ms"] * 1e3 / 1e12
+    m["bound_share"] = m["bound_ms"] / m["ms"]
+    return m
+
+
 def _plane_sweep_case(gen, poses, k4, dv, src_frames, ref_frames) -> dict:
     """Kernel 1 on one random feature map per entry of src_frames, swept
     into the frustum of the matching entry of ref_frames."""
@@ -305,21 +368,32 @@ def _plane_sweep_case(gen, poses, k4, dv, src_frames, ref_frames) -> dict:
     x, y = warp.plane_sweep_coords(proj[src_frames], proj[ref_frames],
                                    dv.expand(b, d), h, w)
     out_numel, voxels = b * d * h * w * c, b * d * h * w
-    return _measure(
+    flops = out_numel * 9 + voxels * 20
+    m = _measure(
         "plane_sweep_warp",
         lambda: plane_warp.plane_sweep_sample(src, x, y),
         lambda: plane_warp.plane_sweep_sample_plain(src, x, y),
-        nbytes(src, x, y) + 4 * out_numel, out_numel * 9 + voxels * 20,
+        nbytes(src, x, y) + 4 * out_numel, flops,
         library=_grid_sample(src, x, y), exact=True)
+    src16 = src.bfloat16()
+    m["bf16"] = _bf16_entry(
+        "plane_sweep_warp",
+        lambda: plane_warp.plane_sweep_sample(src16, x, y),
+        lambda: plane_warp.plane_sweep_sample_plain(src16, x, y),
+        lambda: plane_warp.plane_sweep_sample(src, x, y),
+        nbytes(src16, x, y) + 2 * out_numel, flops,
+        library=_grid_sample(src16, x, y))
+    return m
 
 
 def _grid_sample(src, x, y):
     """One F.grid_sample call over the same coordinates (a softer edge
-    rule than the port's hard mask): timed here, used nowhere."""
+    rule than the port's hard mask): timed here, used nowhere. The grid
+    takes src's dtype, as grid_sample requires."""
     b, h, w, _ = src.shape
     nchw = src.permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
-    grid = grid.reshape(b, -1, w, 2)
+    grid = grid.reshape(b, -1, w, 2).to(src.dtype)
     return lambda: F.grid_sample(nchw, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
 
@@ -355,13 +429,24 @@ def _two_pass_case(gen, poses, k4, dv, src_frames, ref_frames,
     # yardstick of the same memory work
     library = (_grid_sample(src, x.reshape(b, -1), y.reshape(b, -1))
                if planes_per_map > 1 else None)
+    flops = out_numel * 9 + out_numel // c * 24
     m = _measure(
         "two_pass_resample",
         lambda: two_pass.two_pass_resample(src, ab, x, y, planes_per_map),
         lambda: two_pass.two_pass_resample_plain(src, ab, x, y,
                                                  planes_per_map),
-        nbytes(src, ab, x, y) + 4 * out_numel,
-        out_numel * 9 + out_numel // c * 24, library=library, exact=True)
+        nbytes(src, ab, x, y) + 4 * out_numel, flops, library=library,
+        exact=True)
+    src16 = src.bfloat16()
+    m["bf16"] = _bf16_entry(
+        "two_pass_resample",
+        lambda: two_pass.two_pass_resample(src16, ab, x, y, planes_per_map),
+        lambda: two_pass.two_pass_resample_plain(src16, ab, x, y,
+                                                 planes_per_map),
+        lambda: two_pass.two_pass_resample(src, ab, x, y, planes_per_map),
+        nbytes(src16, ab, x, y) + 2 * out_numel, flops,
+        library=(_grid_sample(src16, x.reshape(b, -1), y.reshape(b, -1))
+                 if planes_per_map > 1 else None))
     m["planes_per_map"] = planes_per_map
     if planes_per_map > 1:
         # how far the two-pass form is from the exact bilinear sample
@@ -392,13 +477,20 @@ def _exact_z_case(gen, poses, k4, dv, neighbour_frames, target_frame) -> dict:
     def plain():
         return resample_exact_z(vol, zi, x, y, z, DEPTH_MIN, dint)
 
-    m = _measure(
-        "frustum_warp_exact_z",
-        lambda: plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z,
-                                                    DEPTH_MIN, dint),
-        plain, nbytes(vol, zi, x, y, z) + nbytes(vol),
-        vol.numel() * 32 + vol.numel() // c * 30)
+    def kern(v):
+        return plane_warp_exact_z.exact_z_resample(v, zi, x, y, z,
+                                                   DEPTH_MIN, dint)
+
+    flops = vol.numel() * 32 + vol.numel() // c * 30
+    m = _measure("frustum_warp_exact_z", lambda: kern(vol), plain,
+                 nbytes(vol, zi, x, y, z) + nbytes(vol), flops)
     m["valid_share"] = (plain().abs().amax(-1) > 0).float().mean().item()
+    vol16 = vol.bfloat16()
+    m["bf16"] = _bf16_entry(
+        "frustum_warp_exact_z", lambda: kern(vol16),
+        lambda: resample_exact_z(vol16, zi, x, y, z, DEPTH_MIN, dint),
+        lambda: kern(vol), nbytes(vol16, zi, x, y, z) + nbytes(vol16),
+        flops)
     return m
 
 
@@ -470,11 +562,19 @@ def phase_kernels() -> list[dict]:
     row["plain_ms"] = batch_ms(plain, reps=3)
     row["library_ms"] = None
     voxels = warped.numel() // c
+    flops = warped.numel() * 21 + voxels * 40
     row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(vol, zi, x, y, warped), warped.numel() * 21 + voxels * 40)
+        nbytes(vol, zi, x, y, warped), flops)
     row["valid_share"] = (out_p.abs().amax(-1) > 0).float().mean().item()
+    vol16 = vol.bfloat16()
+    warped16 = plane_mix.plane_mix_resample(vol16, zi, x, y)
+    row["bf16"] = _bf16_entry(
+        "frustum_warp_plane_mix",
+        lambda: plane_mix.plane_mix_resample(vol16, zi, x, y),
+        lambda: plane_mix.plane_mix_resample_plain(vol16, zi, x, y), kern,
+        nbytes(vol16, zi, x, y, warped16), flops)
     rows.append(row)
-    del vol, out_p
+    del vol, vol16, out_p
 
     # kernel 5, Joint window: the target's key against the K and V halves
     # of the volume kernel 4 just wrote, read in place as the fusion does
@@ -513,8 +613,43 @@ def phase_kernels() -> list[dict]:
     if not lib_err < 1e-4:
         raise AssertionError(f"library attention differs by {lib_err}")
     row["ms"], row["library_ms"] = turns_ms(kern, library)
+    flops = voxels * (n * 64 + n * 20)
     row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(tk, out_k) + 2 * n * nbytes(tk), voxels * (n * 64 + n * 20))
+        nbytes(tk, out_k) + 2 * n * nbytes(tk), flops)
+    # bf16: the target key and the K and V halves of kernel 4's bf16
+    # volume, read in place
+    tk16 = tk.bfloat16()
+    view16 = warped16.reshape(1, n, d, h, w, c).transpose(0, 1)
+    wk16, wv16 = view16[..., :ck], view16[..., ck:]
+    q16 = tk16.reshape(q.shape)
+    k16_lib, v16_lib = (
+        m.permute(1, 2, 3, 4, 0, 5).reshape(8, voxels // 8, n, ck)
+        for m in (wk16, wv16))
+
+    def library16():
+        return F.scaled_dot_product_attention(q16, k16_lib, v16_lib,
+                                              scale=1.0) / n
+
+    # the same function in bf16, rounded at other places than the plain
+    # version: held to a few ulps of the output's scale, the measure of
+    # the kernel's own check
+    plain16 = epipolar_attention.epipolar_attention_plain(tk16, wk16, wv16,
+                                                          valid).float()
+    lib16_err = (library16().reshape(plain16.shape).float()
+                 - plain16).abs().max().item()
+    lib16_ulps = lib16_err / _bf16_ulp(plain16.abs().max().item())
+    if not lib16_ulps <= 4:
+        raise AssertionError(f"bf16 library attention differs by "
+                             f"{lib16_ulps} ulps of the output's scale")
+    del plain16
+    row["bf16"] = _bf16_entry(
+        "epipolar_attention",
+        lambda: epipolar_attention.epipolar_attention(tk16, wk16, wv16,
+                                                      valid),
+        lambda: epipolar_attention.epipolar_attention_plain(tk16, wk16,
+                                                            wv16, valid),
+        kern, nbytes(tk16) * (2 + 2 * n), flops, library=library16)
+    row["bf16"]["library_err_in_ulps_of_scale"] = lib16_ulps
     rows.append(row)
     for r in rows:
         log("kernel", **r)
@@ -595,13 +730,56 @@ def phase_reference() -> None:
         raise AssertionError(f"card vs CPU stream: max abs err {err}")
 
 
+def phase_reference_bf16() -> None:
+    """A small bf16 ESTM stream (ndepths 8, 64x96, ResNet-18, 5 windows)
+    through the kernels' bf16 instances on the card against the same bf16
+    model on the CPU, same weights: all 4 depth scales within twice the
+    card's own bf16-against-float32 distance on the same frames (bf16
+    rounds at other places in the two devices' convolutions)."""
+    frames = _pitched_frames(7)
+    outs = {}
+    for dtype, dev in (("float32", "cuda"), ("bfloat16", "cuda"),
+                       ("bfloat16", "cpu")):
+        cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                          compute_dtype=dtype)
+        counts = _read_bf16_counts()
+        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96, device=dev)
+        outs[dtype, dev] = [out.cpu() for f in frames if (
+            out := runner.push_frame(f["img"], f["cam_pose"],
+                                     f["cam_intr"])) is not None]
+        if runner.memory.keys.dtype != torch_dtype(dtype):
+            raise AssertionError(f"memory {runner.memory.keys.dtype}")
+        launched = {k: n - counts[k] for k, n in _read_bf16_counts().items()}
+        if dtype == "bfloat16" and dev == "cuda" and launched != {
+                **dict.fromkeys(KERNELS, 0), "plane_sweep_warp": 5,
+                "frustum_warp_exact_z": 4}:
+            raise AssertionError(f"small bf16 stream launches {launched}")
+
+    def dist(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    own = dist(outs["bfloat16", "cuda"], outs["float32", "cuda"])
+    err = dist(outs["bfloat16", "cuda"], outs["bfloat16", "cpu"])
+    log("reference_bf16", windows=len(outs["bfloat16", "cuda"]),
+        max_abs_err=err, bf16_against_f32=own, ratio=err / own)
+    if not (len(outs["bfloat16", "cuda"]) == 5 and err <= 2 * own):
+        raise AssertionError(f"card vs CPU bf16 stream: max abs err {err} "
+                             f"against the card's bf16-vs-f32 {own}")
+
+
 def _reset_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.launches = k.launches_bf16 = 0
 
 
 def _read_counts() -> dict:
+    """Launches of each kernel, both instances."""
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _read_bf16_counts() -> dict:
+    """Launches of each kernel's bfloat16 instance."""
+    return {name: k.launches_bf16 for name, k in KERNELS.items()}
 
 
 def phase_reference_joint() -> None:
@@ -893,6 +1071,191 @@ def phase_joint_path(rows: list[dict]) -> None:
             row["launches_by_path"][path] = launches[row["name"]]
 
 
+def _launched(path: str, dtype: str, expected: dict) -> tuple[dict, dict]:
+    """The launches since the last reset against `expected` (every kernel
+    not named there: 0); a bf16 run launches only bf16 instances and a
+    float32 run none. Returns (launches, bf16 launches)."""
+    torch.cuda.synchronize()
+    launches, bf16 = _read_counts(), _read_bf16_counts()
+    if launches != {**dict.fromkeys(KERNELS, 0), **expected}:
+        raise AssertionError(f"{path} {dtype}: kernel launches {launches}, "
+                             f"expected {expected}")
+    want_bf16 = launches if dtype == "bfloat16" else dict.fromkeys(KERNELS,
+                                                                   0)
+    if bf16 != want_bf16:
+        raise AssertionError(f"{path} {dtype}: bf16 instance launches "
+                             f"{bf16} of {launches}")
+    return launches, bf16
+
+
+def _in_turns(path: str, rows: list[dict], run, expected: dict) -> dict:
+    """run(dtype) -> (ms per step or frame, summary) for the bf16 model and
+    the float32 one in turns (bf16, f32, f32, bf16), each between a reset
+    and a check of the kernel counts: the median of each dtype's two ms,
+    their ratio, and the first bf16 run's summary and launches, which the
+    kernel rows record under `path`."""
+    ms = {"bfloat16": [], "float32": []}
+    summary = None
+    for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t, info = run(dtype)
+        launches, bf16 = _launched(path, dtype, expected)
+        info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        ms[dtype].append(t)
+        if dtype == "bfloat16" and summary is None:
+            summary = {"launches": launches, **info}
+            for row in rows:
+                row["launches_by_path"][path] = launches[row["name"]]
+                row["bf16"]["launches_by_path"][path] = bf16[row["name"]]
+        elif dtype == "float32":
+            summary.setdefault("f32", info)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return {"ms_bf16": med["bfloat16"], "ms_f32": med["float32"],
+            "ratio_bf16_to_f32": med["bfloat16"] / med["float32"],
+            "ms_runs": ms, **summary}
+
+
+def _check_depths(path: str, maps: np.ndarray, shape: tuple) -> list:
+    if maps.shape != shape:
+        raise AssertionError(f"{path}: outputs {maps.shape}")
+    if not (np.isfinite(maps).all() and maps.min() >= 0
+            and maps.max() <= DEPTH_MAX):
+        raise AssertionError(f"{path}: depths not finite or outside "
+                             f"[0, depth_max]")
+    return [float(maps.min()), float(maps.max())]
+
+
+def phase_bf16_paths(rows: list[dict]) -> None:
+    """The bf16 model (ModelConfig.compute_dtype="bfloat16", the tools'
+    --bf16) at the flagship width (256x320, D = 64, ResNet-50, random
+    weights from seed 0) through the kernels' bf16 instances, each path in
+    turns with the float32 model in the same run (bf16, f32, f32, bf16):
+    the ESTM stream (8 frames, ms per frame), the Joint chain with the
+    default warp and with the plane-mix warp and the attention kernel (5
+    windows, ms per window), 4 training steps of tools/train.py (ms per
+    step, peak memory; once more in bf16 through the two-pass sweep,
+    kernel 3), and a bf16 stream artifact exported on the card by
+    `export_serving --bf16`, loaded back and streamed beside the live bf16
+    runner. Every kernel's count is set to 0 just before each run and read
+    just after; a bf16 run launches only bf16 instances."""
+    for row in rows:
+        row["bf16"]["launches_by_path"] = {}
+    steps = FRAMES - LWINDOW + 1
+
+    def estm(dtype):
+        res = run_synthetic(HEIGHT, WIDTH, NDEPTHS, DEPTH_MIN, DEPTH_MAX,
+                            resnet=50, lwindow=LWINDOW, memory_size=MEMORY,
+                            scenes=1, n_frames=FRAMES, seed=0, device="cuda",
+                            compute_dtype=dtype)
+        maps = np.stack(res["maps"])
+        return 1e3 * statistics.median(res["times"][2:]), {
+            "times_ms": [1e3 * t for t in res["times"]],
+            "depth_range": _check_depths("estm_bf16", maps,
+                                         (steps, 2, HEIGHT, WIDTH)),
+            "abs_rel": statistics.mean(e["abs_relative"]
+                                       for e in res["errors"])}
+
+    log("bf16_path", path="estm_bf16", **_in_turns(
+        "estm_bf16", rows, estm, {"plane_sweep_warp": steps,
+                                  "frustum_warp_exact_z": steps - 1}))
+
+    targets = SEQ_LENGTH - 2
+    fused = (JOINT_WINDOWS - 1) * targets
+    for path, options, expected in (
+            ("joint_bf16", {}, {"frustum_warp_exact_z": fused}),
+            ("joint_plane_mix_fused_attention_bf16",
+             dict(frustum_mode="plane_mix", fused_attention=True),
+             {"frustum_warp_plane_mix": fused,
+              "epipolar_attention": fused})):
+        def joint(dtype, path=path, options=options):
+            res = eval_joint.run_synthetic(
+                HEIGHT, WIDTH, NDEPTHS, DEPTH_MIN, DEPTH_MAX, resnet=50,
+                seq_length=SEQ_LENGTH, windows=JOINT_WINDOWS, seed=0,
+                device="cuda", compute_dtype=dtype, **options)
+            return 1e3 * statistics.median(res["times"][2:]), {
+                "times_ms": [1e3 * t for t in res["times"]],
+                "depth_range": _check_depths(
+                    path, res["maps"],
+                    (JOINT_WINDOWS, targets, 2, HEIGHT, WIDTH))}
+
+        log("bf16_path", path=path, **_in_turns(
+            path, rows, joint,
+            {"plane_sweep_warp": JOINT_WINDOWS, **expected}))
+
+    def train(dtype, flags=()):
+        with tempfile.TemporaryDirectory() as logdir:
+            args = train_tool.parse_args([
+                "--synthetic", "--steps", str(TRAIN_STEPS), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--ndepths",
+                str(NDEPTHS), "--depth-min", str(DEPTH_MIN), "--depth-max",
+                str(DEPTH_MAX), "--resnet", "50", "--n-frames",
+                str(TRAIN_FRAMES), "--batch-per-device", "1",
+                "--summary-freq", "1", "--seed", "0", "--logdir", logdir,
+                "--ckpt-steps", str(10 * TRAIN_STEPS), *flags,
+                *(["--bf16"] if dtype == "bfloat16" else [])])
+            res = train_tool.run(args)
+        records = res["records"]
+        state = res["state"]
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                   for r in records):
+            raise AssertionError(f"train {dtype}: {records}")
+        if not all(t.dtype == torch.float32
+                   for t in (*state.model.parameters(),
+                             *(v for st in state.optimizer.state.values()
+                               for v in st.values()
+                               if v.is_floating_point()))):
+            raise AssertionError("bf16 training: a parameter or an Adam "
+                                 "moment is not float32")
+        return 1e3 * statistics.median(r["seconds"] for r in records[1:]), {
+            "times_ms": [1e3 * r["seconds"] for r in records],
+            "losses": [r["loss"] for r in records]}
+
+    per_step = {"frustum_warp_exact_z": (TRAIN_FRAMES - 2) * TRAIN_STEPS}
+    log("bf16_path", path="train_bf16", **_in_turns(
+        "train_bf16", rows, train,
+        {"plane_sweep_warp": TRAIN_STEPS, **per_step}))
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, info = train("bfloat16", ["--two-pass-warp"])
+    launches, bf16 = _launched("train_two_pass_warp_bf16", "bfloat16", {
+        "two_pass_resample": TRAIN_STEPS, **per_step})
+    log("bf16_path", path="train_two_pass_warp_bf16", ms_bf16=ms,
+        launches=launches,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), **info)
+    for row in rows:
+        row["launches_by_path"]["train_two_pass_warp_bf16"] = launches[
+            row["name"]]
+        row["bf16"]["launches_by_path"]["train_two_pass_warp_bf16"] = bf16[
+            row["name"]]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        path = "serving_stream_bf16"
+        art = _exported(os.path.join(tmp, path),
+                        ["--bf16", "--verify", str(VERIFY_FRAMES),
+                         *_export_flags()])
+        runner = art.pop("runner")
+        if runner.manifest["memory_dtype"] != "bfloat16":
+            raise AssertionError(f"{path}: manifest {runner.manifest}")
+        live = ESTMRunner(DepthNetHybrid(ModelConfig(
+            ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+            resnet=50, compute_dtype="bfloat16"), seed=0), HEIGHT, WIDTH,
+            LWINDOW, MEMORY, output_scales=SERVING_SCALES, device="cuda")
+        res = _artifact_against_live(
+            path, runner, live, list(synthetic_stream(
+                SyntheticSceneConfig(height=HEIGHT, width=WIDTH, seed=0),
+                FRAMES, DEPTH_MIN, DEPTH_MAX)),
+            {"plane_sweep_warp": steps, "frustum_warp_exact_z": steps - 1},
+            bf16=True)
+        log("serving", path=path, **art, **res)
+        for row in rows:
+            row["launches_by_path"][path] = res["launches"][row["name"]]
+            row["bf16"]["launches_by_path"][path] = res["launches"][
+                row["name"]]
+    torch.cuda.empty_cache()
+
+
 def _timed_outputs(runner, frames) -> tuple[list, list]:
     """Frames through `runner.push_frame` after a reset: per output, the
     seconds from the first push since the previous output to the fetched
@@ -938,12 +1301,13 @@ class _JointFeed:
 
 
 def _artifact_against_live(path: str, artifact, live, frames,
-                           expected: dict) -> dict:
+                           expected: dict, bf16: bool = False) -> dict:
     """A loaded artifact and its live runner over the same frames in turns
     (artifact, live, live, artifact): the artifact's first pass between a
-    reset and a read of the kernel counts, max |artifact - live| over its
-    maps, and each runner's steady-state ms per output (the median of the
-    outputs after the first two, over both of its passes)."""
+    reset and a read of the kernel counts (with `bf16`, every launch of
+    the kernels' bf16 instances), max |artifact - live| over its maps, and
+    each runner's steady-state ms per output (the median of the outputs
+    after the first two, over both of its passes)."""
     _reset_counts()
     a1, maps = _timed_outputs(artifact, frames)
     torch.cuda.synchronize()
@@ -951,6 +1315,9 @@ def _artifact_against_live(path: str, artifact, live, frames,
     if launches != {**dict.fromkeys(KERNELS, 0), **expected}:
         raise AssertionError(f"{path}: kernel launches {launches}, "
                              f"expected {expected}")
+    if bf16 and _read_bf16_counts() != launches:
+        raise AssertionError(f"{path}: float32 instances launched: "
+                             f"{launches}, bf16 {_read_bf16_counts()}")
     l1, want = _timed_outputs(live, frames)
     l2, _ = _timed_outputs(live, frames)
     a2, _ = _timed_outputs(artifact, frames)
@@ -1648,21 +2015,26 @@ def main() -> None:
     phase_reference()
     phase_reference_joint()
     phase_reference_train()
+    phase_reference_bf16()
     main_ms = phase_main_path(rows)
     phase_joint_path(rows)
     phase_serving(rows)
+    phase_bf16_paths(rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         train_ckpt = os.path.join(tmp, "ckpt")
         train_ms = phase_train_path(rows, train_ckpt)
         phase_dataset_path(rows, main_ms)
         phase_train_dataset(rows, train_ms["train"])
         phase_release(rows, train_ckpt)
-    for row in rows:  # every kernel ran on a main path
+    for row in rows:  # every kernel ran on a main path, in both dtypes
         row["op"] = OPS[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
-        if not row["launches"] > 0:
+        row["bf16"]["launches"] = sum(
+            row["bf16"]["launches_by_path"].values())
+        if not (row["launches"] > 0 and row["bf16"]["launches"] > 0):
             raise AssertionError(f"{row['name']}: never launched on a main "
-                                 f"path")
+                                 f"path ({row['launches']}, bf16 "
+                                 f"{row['bf16']['launches']})")
     print(json.dumps({"kernels": rows}))
     print(dev_info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,11 @@ class ModelConfig:
     # pair and stereo_head1 once per target, in the reference's loop order,
     # so BatchNorm takes its batch statistics per call as the reference does
     sequential_cost_bn: bool = False
+    # the dtype the model computes in (the JAX package's `compute_dtype`):
+    # "float32" or "bfloat16". Parameters, BatchNorm statistics, attention
+    # logits, softmaxes and the depth heads stay float32; activations, the
+    # K/V volumes and the ESTM memory take this dtype.
+    compute_dtype: str = "float32"
 
     @property
     def depth_interval(self) -> float:
@@ -83,6 +88,17 @@ class EvalConfig:
     memory_size: int = 2
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """`ModelConfig.compute_dtype` as a torch dtype."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r}; one of "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
 def tiny_config() -> tuple[ModelConfig, EvalConfig]:
     """Small shapes for unit tests and CPU dry runs."""
     return ModelConfig(ndepths=8), EvalConfig(height=64, width=96)
@@ -100,7 +116,7 @@ def resolve_frustum_mode(exact_warp: bool = False,
 
 
 def add_model_flags(parser) -> None:
-    """The warp and attention flags shared by the eval tools."""
+    """The warp, attention and dtype flags shared by the eval tools."""
     parser.add_argument("--exact-warp", action="store_true",
                         help="the reference's trilinear frustum warp")
     parser.add_argument("--exact-z", default=True,
@@ -109,6 +125,21 @@ def add_model_flags(parser) -> None:
                              "(default on; --no-exact-z: plain plane-mix)")
     parser.add_argument("--fused-attention", action="store_true",
                         help="EST attention through its CUDA kernel")
+    add_bf16_flag(parser)
+
+
+def add_bf16_flag(parser) -> None:
+    """`--bf16`: the model computes in bfloat16 (ModelConfig.compute_dtype),
+    as the JAX tools' flag."""
+    parser.add_argument("--bf16", action="store_true",
+                        help="compute in bfloat16 (parameters, BatchNorm "
+                             "statistics, softmaxes and depth heads stay "
+                             "float32)")
+
+
+def compute_dtype_flag(args) -> str:
+    """The compute_dtype of a tool's `--bf16` flag."""
+    return "bfloat16" if args.bf16 else "float32"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -21,53 +21,66 @@
 // The neighbours' keys and values are read IN PLACE from the volume the
 // frustum warp wrote, [B, N, D, H, W, 2C] with K in channels [0, C) and V
 // in [C, 2C): the kernel takes the neighbour stride, the batch stride and
-// the voxel pitch in floats, so no contiguous copy of the 2N half-volumes
-// is made.
+// the voxel pitch in elements, so no contiguous copy of the 2N
+// half-volumes is made.
 //
 // Bound on the card: bytes. tk, N keys and N values are read once and the
 // output is written once: (2 + 2N) * B * D*H*W * 64 bytes, 168 MB at the
 // Joint window's shapes (N = 3, 64 x 64 x 80 voxels). A thread's 64-byte
 // rows are 16-byte loads whose sectors its neighbours in the warp do not
 // share, so the loads rely on L1 to use both halves of each 32-byte sector.
+//
+// Two instances of one body: epipolar_attention_f32 and
+// epipolar_attention_bf16. A bfloat16 row of 16 channels is two 16-byte
+// vectors, unpacked to floats (csrc/vec16.cuh); the correlation, softmax,
+// weighted sum and division are float32 in both, and a bfloat16 output is
+// rounded once, as the TPU kernel's (bf16 in and out, f32 inside). In
+// bfloat16 every row halves: 84 MB at the Joint window's shapes.
 
-#include <cuda_runtime.h>
+#include "vec16.cuh"
 
 namespace {
 
 constexpr int kMaxNeighbours = 8;
-constexpr int kC4 = 4;  // 16 channels as 4 float4
+constexpr int kChannels = 16;
 constexpr float kNegInf = -1e9f;
 
+// One voxel's 16 channels as floats.
 struct Row {
-  float4 q[kC4];
+  float c[kChannels];
 };
 
-__device__ __forceinline__ Row load_row(const float* __restrict__ p) {
+template <typename T>
+__device__ __forceinline__ Row load_row(const T* __restrict__ p) {
+  using V = vec16::Vec<T>;
+  constexpr int kVectors = kChannels / V::kLanes;
+  const typename V::Raw* pv = reinterpret_cast<const typename V::Raw*>(p);
   Row r;
-  const float4* p4 = reinterpret_cast<const float4*>(p);
 #pragma unroll
-  for (int i = 0; i < kC4; ++i) r.q[i] = __ldg(p4 + i);
+  for (int i = 0; i < kVectors; ++i) {
+    float f[V::kLanes];
+    V::unpack(__ldg(pv + i), f);
+#pragma unroll
+    for (int l = 0; l < V::kLanes; ++l) r.c[i * V::kLanes + l] = f[l];
+  }
   return r;
 }
 
 __device__ __forceinline__ float dot(const Row& a, const Row& b) {
   float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kC4; ++i) {
-    s += a.q[i].x * b.q[i].x;
-    s += a.q[i].y * b.q[i].y;
-    s += a.q[i].z * b.q[i].z;
-    s += a.q[i].w * b.q[i].w;
-  }
+  for (int i = 0; i < kChannels; ++i) s += a.c[i] * b.c[i];
   return s;
 }
 
+template <typename T>
 __global__ void epipolar_attention_kernel(
-    const float* __restrict__ tk, const float* __restrict__ wk,
-    const float* __restrict__ wv, const int* __restrict__ valid,
-    float* __restrict__ out, int N, int B, long long P, long long tk_batch,
+    const T* __restrict__ tk, const T* __restrict__ wk,
+    const T* __restrict__ wv, const int* __restrict__ valid,
+    T* __restrict__ out, int N, int B, long long P, long long tk_batch,
     long long tk_pitch, long long w_neighbour, long long w_batch,
     long long w_pitch) {
+  using V = vec16::Vec<T>;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<long long>(B) * P) return;
@@ -102,53 +115,73 @@ __global__ void epipolar_attention_kernel(
   }
   Row acc;
 #pragma unroll
-  for (int i = 0; i < kC4; ++i) acc.q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kChannels; ++i) acc.c[i] = 0.0f;
 #pragma unroll
   for (int n = 0; n < kMaxNeighbours; ++n) {
     if (n < N && __ldg(valid + n * B + b) != 0) {
       const float a = logit[n] / denom;
       const Row val = load_row(wv + n * w_neighbour + w_off);
 #pragma unroll
-      for (int i = 0; i < kC4; ++i) {
-        acc.q[i].x += a * val.q[i].x;
-        acc.q[i].y += a * val.q[i].y;
-        acc.q[i].z += a * val.q[i].z;
-        acc.q[i].w += a * val.q[i].w;
-      }
+      for (int i = 0; i < kChannels; ++i) acc.c[i] += a * val.c[i];
     }
   }
   const float count = fmaxf(static_cast<float>(n_valid), 1.0f);
-  float4* o = reinterpret_cast<float4*>(out + t * (4 * kC4));
+  typename V::Raw* o =
+      reinterpret_cast<typename V::Raw*>(out + t * kChannels);
 #pragma unroll
-  for (int i = 0; i < kC4; ++i) {
-    o[i] = make_float4(acc.q[i].x / count, acc.q[i].y / count,
-                       acc.q[i].z / count, acc.q[i].w / count);
+  for (int i = 0; i < kChannels / V::kLanes; ++i) {
+    float f[V::kLanes];
+#pragma unroll
+    for (int l = 0; l < V::kLanes; ++l)
+      f[l] = acc.c[i * V::kLanes + l] / count;
+    o[i] = V::pack(f);
   }
 }
 
-}  // namespace
-
-// tk: B batch entries of P voxels of 16 f32 channels, entry b voxel p at
-// tk + b * tk_batch + p * tk_pitch (floats). wk, wv: N neighbours of the
-// same, neighbour n at + n * w_neighbour + b * w_batch + p * w_pitch.
-// valid [N, B] int32. out [B, P, 16] contiguous. Every row is 16-byte
-// aligned and 1 <= N <= 8 (checked by the Python wrapper). Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int epipolar_attention_f32(
-    const void* tk, const void* wk, const void* wv, const void* valid,
-    void* out, int N, int B, long long P, long long tk_batch,
-    long long tk_pitch, long long w_neighbour, long long w_batch,
-    long long w_pitch, void* stream) {
+template <typename T>
+int launch(const void* tk, const void* wk, const void* wv, const void* valid,
+           void* out, int N, int B, long long P, long long tk_batch,
+           long long tk_pitch, long long w_neighbour, long long w_batch,
+           long long w_pitch, void* stream) {
   const long long total = static_cast<long long>(B) * P;
   if (total == 0) return 0;
   if (N < 1 || N > kMaxNeighbours) return cudaErrorInvalidValue;
   const int threads = 128;
   const long long blocks = (total + threads - 1) / threads;
-  epipolar_attention_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tk), static_cast<const float*>(wk),
-      static_cast<const float*>(wv), static_cast<const int*>(valid),
-      static_cast<float*>(out), N, B, P, tk_batch, tk_pitch, w_neighbour,
-      w_batch, w_pitch);
+  epipolar_attention_kernel<T>
+      <<<static_cast<unsigned int>(blocks), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(tk), static_cast<const T*>(wk),
+          static_cast<const T*>(wv), static_cast<const int*>(valid),
+          static_cast<T*>(out), N, B, P, tk_batch, tk_pitch, w_neighbour,
+          w_batch, w_pitch);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// tk: B batch entries of P voxels of 16 channels (float32, or bfloat16 in
+// the _bf16 instance), entry b voxel p at tk + b * tk_batch + p * tk_pitch
+// (elements). wk, wv: N neighbours of the same, neighbour n at
+// + n * w_neighbour + b * w_batch + p * w_pitch. valid [N, B] int32. out
+// [B, P, 16] contiguous, of tk's type. Every row is 16-byte aligned and
+// 1 <= N <= 8 (checked by the Python wrapper). Launches on `stream` and
+// returns cudaGetLastError().
+extern "C" int epipolar_attention_f32(
+    const void* tk, const void* wk, const void* wv, const void* valid,
+    void* out, int N, int B, long long P, long long tk_batch,
+    long long tk_pitch, long long w_neighbour, long long w_batch,
+    long long w_pitch, void* stream) {
+  return launch<float>(tk, wk, wv, valid, out, N, B, P, tk_batch, tk_pitch,
+                       w_neighbour, w_batch, w_pitch, stream);
+}
+
+extern "C" int epipolar_attention_bf16(
+    const void* tk, const void* wk, const void* wv, const void* valid,
+    void* out, int N, int B, long long P, long long tk_batch,
+    long long tk_pitch, long long w_neighbour, long long w_batch,
+    long long w_pitch, void* stream) {
+  return launch<__nv_bfloat16>(tk, wk, wv, valid, out, N, B, P, tk_batch,
+                               tk_pitch, w_neighbour, w_batch, w_pitch,
+                               stream);
 }

@@ -24,7 +24,7 @@
 // The TPU version writes A and s for every (plane, source pixel) to HBM
 // (as bf16 pairs in its packed mode) and resamples them in two passes,
 // because Mosaic can neither gather across lanes nor fuse the stages.
-// Here one thread per (voxel, 4 channels) gathers its corners' taps
+// Here one thread per (voxel, 16-byte vector) gathers its corners' taps
 // directly: A and s never reach device memory, so there is nothing to pack,
 // and the sample is taken at the exact (x, y).
 //
@@ -35,8 +35,17 @@
 // neighbouring voxels share corners and planes, so the repeated reads are
 // meant to hit L1/L2 rather than device memory. Out-of-window voxels skip
 // all gathers.
+//
+// Two instances of one body: frustum_warp_exact_z_f32 and
+// frustum_warp_exact_z_bf16. A thread owns one 16-byte vector of a voxel:
+// 4 float32 or 8 bfloat16 channels (csrc/vec16.cuh). A and s are float32
+// in both, as the TPU function keeps them for a bf16 volume: A carries
+// z0 * s at up to Z-1 times the volume's scale, which a bf16 A would
+// amplify. A bfloat16 result is rounded once. In bfloat16 the volume and
+// the output halve (42 MB each at the flagship step) and the 10.5 MB of
+// x/y/z and zi do not: about 28 us at 3.35 TB/s.
 
-#include <cuda_runtime.h>
+#include "vec16.cuh"
 
 namespace {
 
@@ -59,46 +68,47 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
   return __fadd_rn(a, __fmul_rn(t, __fsub_rn(b, a)));
 }
 
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
-  return make_float4(lerp(a.x, b.x, t), lerp(a.y, b.y, t), lerp(a.z, b.z, t),
-                     lerp(a.w, b.w, t));
-}
-
-// Tap A and slope s of one corner pixel: the corner's z-cell from its own
-// plane index, clamped into range (never zeroed). No FMA contraction here
-// either: A = v0 - z0 * s carries z0 * s at up to Z-1 times the volume's
-// scale, and a contracted A moves the output by ~2e-5 of its scale.
-__device__ __forceinline__ void tap_slope(const float4* __restrict__ vol_b,
-                                          const float* __restrict__ zi_map,
-                                          int pix, int Z, long long hw,
-                                          int C4, float4& a, float4& s) {
+// Tap A and slope s of one corner pixel, one vector of channels: the
+// corner's z-cell from its own plane index, clamped into range (never
+// zeroed). No FMA contraction here either: A = v0 - z0 * s carries z0 * s
+// at up to Z-1 times the volume's scale, and a contracted A moves the
+// output by ~2e-5 of its scale.
+template <typename T>
+__device__ __forceinline__ void tap_slope(
+    const typename vec16::Vec<T>::Raw* __restrict__ vol_b,
+    const float* __restrict__ zi_map, int pix, int Z, long long hw, int CV,
+    float (&a)[vec16::Vec<T>::kLanes], float (&s)[vec16::Vec<T>::kLanes]) {
+  using V = vec16::Vec<T>;
   const float zq = __ldg(zi_map + pix);
   const float z0 =
       fminf(fmaxf(floorf(fminf(fmaxf(zq, 0.0f), static_cast<float>(Z - 1))),
                   0.0f),
             fmaxf(static_cast<float>(Z - 2), 0.0f));
   const long long z0i = static_cast<long long>(z0);
-  const float4 v0 = __ldg(vol_b + (z0i * hw + pix) * C4);
-  const float4 v1 = __ldg(vol_b + ((z0i + 1) * hw + pix) * C4);
-  s = make_float4(__fsub_rn(v1.x, v0.x), __fsub_rn(v1.y, v0.y),
-                  __fsub_rn(v1.z, v0.z), __fsub_rn(v1.w, v0.w));
-  a = make_float4(__fsub_rn(v0.x, __fmul_rn(z0, s.x)),
-                  __fsub_rn(v0.y, __fmul_rn(z0, s.y)),
-                  __fsub_rn(v0.z, __fmul_rn(z0, s.z)),
-                  __fsub_rn(v0.w, __fmul_rn(z0, s.w)));
+  float v0[V::kLanes], v1[V::kLanes];
+  V::unpack(__ldg(vol_b + (z0i * hw + pix) * CV), v0);
+  V::unpack(__ldg(vol_b + ((z0i + 1) * hw + pix) * CV), v1);
+#pragma unroll
+  for (int l = 0; l < V::kLanes; ++l) {
+    s[l] = __fsub_rn(v1[l], v0[l]);
+    a[l] = __fsub_rn(v0[l], __fmul_rn(z0, s[l]));
+  }
 }
 
+template <typename T>
 __global__ void frustum_warp_exact_z_kernel(
-    const float4* __restrict__ vol, const float* __restrict__ zi,
-    const float* __restrict__ xs, const float* __restrict__ ys,
-    const float* __restrict__ zs, float4* __restrict__ out, int Z, int H,
-    int W, int C4, float depth_min, float inv_depth_interval,
-    long long total) {
+    const typename vec16::Vec<T>::Raw* __restrict__ vol,
+    const float* __restrict__ zi, const float* __restrict__ xs,
+    const float* __restrict__ ys, const float* __restrict__ zs,
+    typename vec16::Vec<T>::Raw* __restrict__ out, int Z, int H, int W,
+    int CV, float depth_min, float inv_depth_interval, long long total) {
+  using V = vec16::Vec<T>;
+  constexpr int L = V::kLanes;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const int c4 = static_cast<int>(t % C4);
-  const long long v = t / C4;  // voxel index over [B, D, H, W], D == Z
+  const int cv = static_cast<int>(t % CV);
+  const long long v = t / CV;  // voxel index over [B, D, H, W], D == Z
   const long long hw = static_cast<long long>(H) * W;
   const long long bd = v / hw;  // b * D + d
   const long long b = bd / Z;
@@ -110,34 +120,59 @@ __global__ void frustum_warp_exact_z_kernel(
                      zstar >= -kEps &&
                      zstar <= static_cast<float>(Z - 1) + kEps;
   if (!valid) {
-    out[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    out[t] = typename V::Raw{};
     return;
   }
   int x0, x1, y0, y1;
   float wx, wy;
   corner(x, W, x0, x1, wx);
   corner(y, H, y0, y1, wy);
-  const float4* vol_b = vol + b * Z * hw * C4 + c4;
+  const typename V::Raw* vol_b = vol + b * Z * hw * CV + cv;
   const float* zi_map = zi + bd * hw;
-  float4 a00, s00, a01, s01, a10, s10, a11, s11;
-  tap_slope(vol_b, zi_map, y0 * W + x0, Z, hw, C4, a00, s00);
-  tap_slope(vol_b, zi_map, y0 * W + x1, Z, hw, C4, a01, s01);
-  tap_slope(vol_b, zi_map, y1 * W + x0, Z, hw, C4, a10, s10);
-  tap_slope(vol_b, zi_map, y1 * W + x1, Z, hw, C4, a11, s11);
-  const float4 at = lerp4(lerp4(a00, a01, wx), lerp4(a10, a11, wx), wy);
-  const float4 st = lerp4(lerp4(s00, s01, wx), lerp4(s10, s11, wx), wy);
+  float a00[L], s00[L], a01[L], s01[L], a10[L], s10[L], a11[L], s11[L];
+  tap_slope<T>(vol_b, zi_map, y0 * W + x0, Z, hw, CV, a00, s00);
+  tap_slope<T>(vol_b, zi_map, y0 * W + x1, Z, hw, CV, a01, s01);
+  tap_slope<T>(vol_b, zi_map, y1 * W + x0, Z, hw, CV, a10, s10);
+  tap_slope<T>(vol_b, zi_map, y1 * W + x1, Z, hw, CV, a11, s11);
   const float zc = fminf(fmaxf(zstar, 0.0f), static_cast<float>(Z - 1));
-  out[t] = make_float4(__fadd_rn(at.x, __fmul_rn(zc, st.x)),
-                       __fadd_rn(at.y, __fmul_rn(zc, st.y)),
-                       __fadd_rn(at.z, __fmul_rn(zc, st.z)),
-                       __fadd_rn(at.w, __fmul_rn(zc, st.w)));
+  float o[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const float at = lerp(lerp(a00[l], a01[l], wx), lerp(a10[l], a11[l], wx),
+                          wy);
+    const float st = lerp(lerp(s00[l], s01[l], wx), lerp(s10[l], s11[l], wx),
+                          wy);
+    o[l] = __fadd_rn(at, __fmul_rn(zc, st));
+  }
+  out[t] = V::pack(o);
+}
+
+template <typename T>
+int launch(const void* vol, const void* zi, const void* x, const void* y,
+           const void* z, void* out, int B, int D, int H, int W, int C,
+           float depth_min, float inv_depth_interval, void* stream) {
+  using Raw = typename vec16::Vec<T>::Raw;
+  const int cv = C / vec16::Vec<T>::kLanes;
+  const long long total = static_cast<long long>(B) * D * H * W * cv;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  frustum_warp_exact_z_kernel<T>
+      <<<static_cast<unsigned int>(blocks), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const Raw*>(vol), static_cast<const float*>(zi),
+          static_cast<const float*>(x), static_cast<const float*>(y),
+          static_cast<const float*>(z), static_cast<Raw*>(out), D, H, W, cv,
+          depth_min, inv_depth_interval, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// vol [B, D, H, W, C], zi [B, D, H*W], x/y/z [B, D*H*W], out like vol; all
-// f32, contiguous, C % 4 == 0, D >= 2 (checked by the Python wrapper).
-// Launches on `stream` and returns cudaGetLastError().
+// vol [B, D, H, W, C], out like vol; zi [B, D, H*W] and x/y/z [B, D*H*W]
+// float32; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), D >= 2
+// (checked by the Python wrapper). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int frustum_warp_exact_z_f32(const void* vol, const void* zi,
                                         const void* x, const void* y,
                                         const void* z, void* out, int B,
@@ -145,16 +180,17 @@ extern "C" int frustum_warp_exact_z_f32(const void* vol, const void* zi,
                                         float depth_min,
                                         float inv_depth_interval,
                                         void* stream) {
-  const int c4 = C / 4;
-  const long long total = static_cast<long long>(B) * D * H * W * c4;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  frustum_warp_exact_z_kernel<<<static_cast<unsigned int>(blocks), threads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(vol), static_cast<const float*>(zi),
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(z), static_cast<float4*>(out), D, H, W, c4,
-      depth_min, inv_depth_interval, total);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(vol, zi, x, y, z, out, B, D, H, W, C, depth_min,
+                       inv_depth_interval, stream);
+}
+
+extern "C" int frustum_warp_exact_z_bf16(const void* vol, const void* zi,
+                                         const void* x, const void* y,
+                                         const void* z, void* out, int B,
+                                         int D, int H, int W, int C,
+                                         float depth_min,
+                                         float inv_depth_interval,
+                                         void* stream) {
+  return launch<__nv_bfloat16>(vol, zi, x, y, z, out, B, D, H, W, C,
+                               depth_min, inv_depth_interval, stream);
 }

@@ -22,7 +22,7 @@
 // The TPU version mixes z for every (plane, source pixel) into an
 // intermediate in device memory, transposes it and resamples it in two
 // passes at row crossings, because Mosaic gathers only along lanes. Here
-// one thread per (voxel, 4 channels) mixes its four corners' taps in
+// one thread per (voxel, 16-byte vector) mixes its four corners' taps in
 // registers and blends them at the exact (x, y): no intermediate reaches
 // device memory, and the result is the plain version's (ops/cuda/
 // plane_mix.plane_mix_resample_plain) operation by operation: every add and
@@ -33,8 +33,17 @@
 // plus 3 x 15.7 MB of zi, x and y. Each voxel reads 8 float4 taps;
 // neighbouring voxels share corners and planes, so the repeated reads are
 // meant to hit L1/L2. Voxels whose (x, y) is out of range skip all gathers.
+//
+// Two instances of one body: frustum_warp_plane_mix_f32 and
+// frustum_warp_plane_mix_bf16. A thread owns one 16-byte vector of a voxel:
+// 4 float32 or 8 bfloat16 channels (csrc/vec16.cuh), mixed and blended in
+// float32 and, in bfloat16, rounded once, where the TPU kernels also round
+// the z-mixed intermediate and the first resample pass to bf16. In
+// bfloat16 the volume and the output halve (63 MB each at the Joint
+// window's shapes) and the 47 MB of zi, x and y do not: about 52 us at
+// 3.35 TB/s.
 
-#include <cuda_runtime.h>
+#include "vec16.cuh"
 
 namespace {
 
@@ -55,24 +64,24 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
   return __fadd_rn(a, __fmul_rn(t, __fsub_rn(b, a)));
 }
 
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
-  return make_float4(lerp(a.x, b.x, t), lerp(a.y, b.y, t), lerp(a.z, b.z, t),
-                     lerp(a.w, b.w, t));
-}
-
 __device__ __forceinline__ float mix(float w0, float v0, float w1, float v1) {
   return __fadd_rn(__fmul_rn(w0, v0), __fmul_rn(w1, v1));
 }
 
-// The z-mixed value of one corner pixel: two hat-weighted taps at the
-// corner's own plane index, zero outside the eps-padded window.
-__device__ __forceinline__ float4 z_mix(const float4* __restrict__ vol_b,
-                                        const float* __restrict__ zi_map,
-                                        int pix, int Z, long long hw,
-                                        int C4) {
+// The z-mixed value of one corner pixel, one vector of channels: two
+// hat-weighted taps at the corner's own plane index, zero outside the
+// eps-padded window.
+template <typename T>
+__device__ __forceinline__ void z_mix(
+    const typename vec16::Vec<T>::Raw* __restrict__ vol_b,
+    const float* __restrict__ zi_map, int pix, int Z, long long hw, int CV,
+    float (&m)[vec16::Vec<T>::kLanes]) {
+  using V = vec16::Vec<T>;
   const float q = __ldg(zi_map + pix);
   if (!(q >= -kEps && q <= static_cast<float>(Z - 1) + kEps)) {
-    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int l = 0; l < V::kLanes; ++l) m[l] = 0.0f;
+    return;
   }
   const float z0 = fminf(fmaxf(floorf(q), 0.0f),
                          fmaxf(static_cast<float>(Z - 2), 0.0f));
@@ -80,21 +89,27 @@ __device__ __forceinline__ float4 z_mix(const float4* __restrict__ vol_b,
   const float w1 = fmaxf(
       __fsub_rn(1.0f, fabsf(__fsub_rn(q, __fadd_rn(z0, 1.0f)))), 0.0f);
   const long long z0i = static_cast<long long>(z0);
-  const float4 v0 = __ldg(vol_b + (z0i * hw + pix) * C4);
-  const float4 v1 = __ldg(vol_b + ((z0i + 1) * hw + pix) * C4);
-  return make_float4(mix(w0, v0.x, w1, v1.x), mix(w0, v0.y, w1, v1.y),
-                     mix(w0, v0.z, w1, v1.z), mix(w0, v0.w, w1, v1.w));
+  float v0[V::kLanes], v1[V::kLanes];
+  V::unpack(__ldg(vol_b + (z0i * hw + pix) * CV), v0);
+  V::unpack(__ldg(vol_b + ((z0i + 1) * hw + pix) * CV), v1);
+#pragma unroll
+  for (int l = 0; l < V::kLanes; ++l) m[l] = mix(w0, v0[l], w1, v1[l]);
 }
 
+template <typename T>
 __global__ void frustum_warp_plane_mix_kernel(
-    const float4* __restrict__ vol, const float* __restrict__ zi,
-    const float* __restrict__ xs, const float* __restrict__ ys,
-    float4* __restrict__ out, int Z, int H, int W, int C4, long long total) {
+    const typename vec16::Vec<T>::Raw* __restrict__ vol,
+    const float* __restrict__ zi, const float* __restrict__ xs,
+    const float* __restrict__ ys,
+    typename vec16::Vec<T>::Raw* __restrict__ out, int Z, int H, int W,
+    int CV, long long total) {
+  using V = vec16::Vec<T>;
+  constexpr int L = V::kLanes;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const int c4 = static_cast<int>(t % C4);
-  const long long v = t / C4;  // voxel index over [B, D, H, W], D == Z
+  const int cv = static_cast<int>(t % CV);
+  const long long v = t / CV;  // voxel index over [B, D, H, W], D == Z
   const long long hw = static_cast<long long>(H) * W;
   const long long bd = v / hw;  // b * D + d
   const long long b = bd / Z;
@@ -103,40 +118,60 @@ __global__ void frustum_warp_plane_mix_kernel(
   const bool valid = x >= 0.0f && x <= static_cast<float>(W - 1) &&
                      y >= 0.0f && y <= static_cast<float>(H - 1);
   if (!valid) {
-    out[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    out[t] = typename V::Raw{};
     return;
   }
   int x0, x1, y0, y1;
   float wx, wy;
   corner(x, W, x0, x1, wx);
   corner(y, H, y0, y1, wy);
-  const float4* vol_b = vol + b * Z * hw * C4 + c4;
+  const typename V::Raw* vol_b = vol + b * Z * hw * CV + cv;
   const float* zi_map = zi + bd * hw;
-  const float4 m00 = z_mix(vol_b, zi_map, y0 * W + x0, Z, hw, C4);
-  const float4 m01 = z_mix(vol_b, zi_map, y0 * W + x1, Z, hw, C4);
-  const float4 m10 = z_mix(vol_b, zi_map, y1 * W + x0, Z, hw, C4);
-  const float4 m11 = z_mix(vol_b, zi_map, y1 * W + x1, Z, hw, C4);
-  out[t] = lerp4(lerp4(m00, m01, wx), lerp4(m10, m11, wx), wy);
+  float m00[L], m01[L], m10[L], m11[L], o[L];
+  z_mix<T>(vol_b, zi_map, y0 * W + x0, Z, hw, CV, m00);
+  z_mix<T>(vol_b, zi_map, y0 * W + x1, Z, hw, CV, m01);
+  z_mix<T>(vol_b, zi_map, y1 * W + x0, Z, hw, CV, m10);
+  z_mix<T>(vol_b, zi_map, y1 * W + x1, Z, hw, CV, m11);
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    o[l] = lerp(lerp(m00[l], m01[l], wx), lerp(m10[l], m11[l], wx), wy);
+  out[t] = V::pack(o);
+}
+
+template <typename T>
+int launch(const void* vol, const void* zi, const void* x, const void* y,
+           void* out, int B, int D, int H, int W, int C, void* stream) {
+  using Raw = typename vec16::Vec<T>::Raw;
+  const int cv = C / vec16::Vec<T>::kLanes;
+  const long long total = static_cast<long long>(B) * D * H * W * cv;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  frustum_warp_plane_mix_kernel<T>
+      <<<static_cast<unsigned int>(blocks), threads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const Raw*>(vol), static_cast<const float*>(zi),
+          static_cast<const float*>(x), static_cast<const float*>(y),
+          static_cast<Raw*>(out), D, H, W, cv, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// vol [B, D, H, W, C], zi [B, D, H*W], x/y [B, D*H*W], out like vol; all
-// f32, contiguous, C % 4 == 0, D >= 2 (checked by the Python wrapper).
-// Launches on `stream` and returns cudaGetLastError().
+// vol [B, D, H, W, C], out like vol; zi [B, D, H*W] and x/y [B, D*H*W]
+// float32; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), D >= 2
+// (checked by the Python wrapper). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int frustum_warp_plane_mix_f32(const void* vol, const void* zi,
                                           const void* x, const void* y,
                                           void* out, int B, int D, int H,
                                           int W, int C, void* stream) {
-  const int c4 = C / 4;
-  const long long total = static_cast<long long>(B) * D * H * W * c4;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  frustum_warp_plane_mix_kernel<<<static_cast<unsigned int>(blocks), threads,
-                                  0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(vol), static_cast<const float*>(zi),
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float4*>(out), D, H, W, c4, total);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(vol, zi, x, y, out, B, D, H, W, C, stream);
+}
+
+extern "C" int frustum_warp_plane_mix_bf16(const void* vol, const void* zi,
+                                           const void* x, const void* y,
+                                           void* out, int B, int D, int H,
+                                           int W, int C, void* stream) {
+  return launch<__nv_bfloat16>(vol, zi, x, y, out, B, D, H, W, C, stream);
 }

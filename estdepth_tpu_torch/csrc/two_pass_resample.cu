@@ -36,6 +36,13 @@
 // a voxel's Taps are its two rows' left corners with a fraction per row,
 // and it needs no shared memory, no barrier and no limit on H and W
 // (>= 2, checked by the wrapper).
+//
+// Two instances of one body: two_pass_resample_f32 and
+// two_pass_resample_bf16 (a bfloat16 map and volume, float32 coefficients
+// and coordinates; both passes in float32 and each value rounded once to
+// bfloat16, csrc/vec16.cuh, where the TPU kernel also rounds its pass-1
+// image). In bfloat16 the training window's sweep writes 126 MB: with the
+// same 16 MB of x/y, about 43 us at 3.35 TB/s.
 
 #include "sweep_gather.cuh"
 
@@ -44,7 +51,7 @@ namespace {
 template <typename Index>
 struct TwoPassTaps {
   const float* ab;  // [P, 2, W]: a then b of each plane
-  int H, W, C4;
+  int H, W, CV;
 
   __device__ __forceinline__ sweep::Taps<Index> operator()(
       int plane, long long voxel, float x, float y) const {
@@ -60,48 +67,47 @@ struct TwoPassTaps {
       sweep::corner(
           __fadd_rn(__fmul_rn(aw, static_cast<float>(y0 + 1)), bw), W, xl,
           t.fl);
-      t.upper = (static_cast<Index>(y0) * W + xu) * C4;
-      t.lower = (static_cast<Index>(y0 + 1) * W + xl) * C4;
+      t.upper = (static_cast<Index>(y0) * W + xu) * CV;
+      t.lower = (static_cast<Index>(y0 + 1) * W + xl) * CV;
     }
     return t;
   }
 };
 
-template <int C4T, typename Index>
+template <typename T, int CVT, typename Index>
 __global__ void __launch_bounds__(sweep::kThreads)
-two_pass_resample_kernel(const float4* __restrict__ src,
+two_pass_resample_kernel(const typename vec16::Vec<T>::Raw* __restrict__ src,
                          const float* __restrict__ ab,
                          const float* __restrict__ xs,
                          const float* __restrict__ ys,
-                         float4* __restrict__ out, sweep::Shape s) {
-  const TwoPassTaps<Index> taps{ab, s.H, s.W, s.C4};
-  sweep::gather_volume<true, C4T, Index>(src, xs, ys, out, s, taps);
+                         typename vec16::Vec<T>::Raw* __restrict__ out,
+                         sweep::Shape s) {
+  const TwoPassTaps<Index> taps{ab, s.H, s.W, s.CV};
+  sweep::gather_volume<T, true, CVT, Index>(src, xs, ys, out, s, taps);
 }
 
+template <typename T>
 struct Launch {
-  const float4* src;
+  using Raw = typename vec16::Vec<T>::Raw;
+  const Raw* src;
   const float *ab, *xs, *ys;
-  float4* out;
+  Raw* out;
   sweep::Shape s;
   unsigned blocks;
   cudaStream_t stream;
 
-  template <int C4T, typename Index>
+  template <int CVT, typename Index>
   void run() const {
-    two_pass_resample_kernel<C4T, Index>
+    two_pass_resample_kernel<T, CVT, Index>
         <<<blocks, sweep::kThreads, 0, stream>>>(src, ab, xs, ys, out, s);
   }
 };
 
-}  // namespace
-
-// src [M, H, W, C], ab [P, 2, W], x/y [P, H*W], out [P, H, W, C]; all f32,
-// contiguous, C % 4 == 0, H, W >= 2, P == M * planes_per_map (checked by
-// the Python wrapper). Launches on `stream` and returns cudaGetLastError().
-extern "C" int two_pass_resample_f32(const void* src, const void* ab,
-                                     const void* x, const void* y, void* out,
-                                     int P, int H, int W, int C,
-                                     int planes_per_map, void* stream) {
+template <typename T>
+int launch(const void* src, const void* ab, const void* x, const void* y,
+           void* out, int P, int H, int W, int C, int planes_per_map,
+           void* stream) {
+  using Raw = typename vec16::Vec<T>::Raw;
   const long long voxels = static_cast<long long>(H) * W;
   if (P == 0 || voxels == 0 || C == 0) return 0;
   sweep::Shape s;
@@ -109,13 +115,35 @@ extern "C" int two_pass_resample_f32(const void* src, const void* ab,
   s.slabs_per_map = planes_per_map;
   s.H = H;
   s.W = W;
-  s.C4 = C / 4;
-  s.right = s.C4;
-  const Launch launch{static_cast<const float4*>(src),
+  s.CV = C / vec16::Vec<T>::kLanes;
+  s.right = s.CV;
+  const Launch<T> run{static_cast<const Raw*>(src),
                       static_cast<const float*>(ab),
                       static_cast<const float*>(x),
-                      static_cast<const float*>(y), static_cast<float4*>(out),
-                      s, blocks, static_cast<cudaStream_t>(stream)};
-  sweep::dispatch(s.C4, voxels * s.C4, launch);
+                      static_cast<const float*>(y), static_cast<Raw*>(out), s,
+                      blocks, static_cast<cudaStream_t>(stream)};
+  sweep::dispatch(s.CV, voxels * s.CV, run);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// src [M, H, W, C], ab [P, 2, W], x/y [P, H*W] float32, out [P, H, W, C]
+// of src's type; contiguous, C a multiple of 4 (float32) or 8 (bfloat16),
+// H, W >= 2, P == M * planes_per_map (checked by the Python wrapper).
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int two_pass_resample_f32(const void* src, const void* ab,
+                                     const void* x, const void* y, void* out,
+                                     int P, int H, int W, int C,
+                                     int planes_per_map, void* stream) {
+  return launch<float>(src, ab, x, y, out, P, H, W, C, planes_per_map,
+                       stream);
+}
+
+extern "C" int two_pass_resample_bf16(const void* src, const void* ab,
+                                      const void* x, const void* y,
+                                      void* out, int P, int H, int W, int C,
+                                      int planes_per_map, void* stream) {
+  return launch<__nv_bfloat16>(src, ab, x, y, out, P, H, W, C,
+                               planes_per_map, stream);
 }

@@ -25,7 +25,8 @@ class ESTMRunner:
 
     push_frame returns a device tensor; reading it to the host is the
     caller's choice. The model is moved to `device` (None: the CUDA
-    device, raising when there is none) and kept in eval mode."""
+    device, raising when there is none) and kept in eval mode; the memory
+    is in its compute dtype."""
 
     def __init__(
         self,
@@ -62,7 +63,8 @@ class ESTMRunner:
     def _fresh_memory(self) -> ESTMemory:
         return ESTMemory.create(
             self.batch, self.memory_size, self.model.cfg.ndepths,
-            self.height // 4, self.width // 4, 16, device=self.device,
+            self.height // 4, self.width // 4, 16,
+            dtype=self.model.compute_dtype, device=self.device,
         )
 
     def reset(self) -> None:

@@ -1,6 +1,6 @@
 """Output trimming shared by the eval runners (port of
 estdepth_tpu/eval/output.py): return only the depth scales a consumer
-reads, optionally downcast."""
+reads, optionally downcast, and read them on the host."""
 
 from __future__ import annotations
 
@@ -17,3 +17,10 @@ def trim_depth(depth: torch.Tensor, output_scales,
     if output_dtype is not None:
         depth = depth.to(output_dtype)
     return depth
+
+
+def to_numpy(t: torch.Tensor):
+    """A host tensor as a numpy array. numpy has no bfloat16: a bfloat16
+    tensor (a `output_dtype=torch.bfloat16` fetch, half the bytes of the
+    copy) becomes float32 here, on the host, after the copy."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

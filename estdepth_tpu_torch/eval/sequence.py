@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from estdepth_tpu_torch.config import resolve_device
-from estdepth_tpu_torch.eval.output import FULL_SCALES, trim_depth
+from estdepth_tpu_torch.eval.output import FULL_SCALES, to_numpy, trim_depth
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.memory import ESTMemory
 
@@ -87,7 +87,8 @@ def make_sequence_processor(model: DepthNetHybrid, lwindow: int = 3,
         poses, intr = _on(dev, poses), _on(dev, intr)
         b, t, h, w, _ = frames.shape
         memory = ESTMemory.create(b, memory_size, model.cfg.ndepths, h // 4,
-                                  w // 4, 16, device=dev)
+                                  w // 4, 16, dtype=model.compute_dtype,
+                                  device=dev)
         feats = _matching(model, frames)
         depths = []
         for start in range(t - lwindow + 1):
@@ -131,7 +132,7 @@ def make_joint_processor(model: DepthNetHybrid, seq_length: int = 5,
         # an empty (valid=False) slot: window 0's push stores its OWN pose,
         # so the strict-pairing induction starts as in JointRunner
         memory = ESTMemory.create(b, 1, model.cfg.ndepths, h // 4, w // 4,
-                                  16, device=dev)
+                                  16, dtype=model.compute_dtype, device=dev)
         feats = _matching(model, frames)
         depths = []
         for wi in range((t - seq_length) // stride + 1):
@@ -163,7 +164,8 @@ class SequenceProcessor:
                  device=None):
         """output_scales / output_dtype trim what is fetched to the host,
         once per chunk, to the depth scales (and precision) the consumer
-        reads; output_dtype must be one numpy has (float16, float32)."""
+        reads. A bfloat16 fetch (numpy has no bfloat16) is copied to the
+        host as bfloat16 and given as float32 there."""
         if chunk < lwindow:
             raise ValueError(f"chunk {chunk} is shorter than the window "
                              f"{lwindow}")
@@ -217,7 +219,8 @@ class SequenceProcessor:
                                   for s in scenes]))
         b, _, h, w, _ = frames_b.shape
         memory = ESTMemory.create(b, self.memory_size, model.cfg.ndepths,
-                                  h // 4, w // 4, 16, device=dev)
+                                  h // 4, w // 4, 16,
+                                  dtype=model.compute_dtype, device=dev)
         fetched, carry = [], None
         # chunk starts advance by `stride`; the last chunk is as long as
         # the frames that are left
@@ -237,7 +240,7 @@ class SequenceProcessor:
                     start + s > 0, self.reference_pose_pairing)
                 depths.append(trim_depth(depth[:, 0], self.output_scales,
                                          self.output_dtype))
-            fetched.append(torch.stack(depths, 1).cpu().numpy())
+            fetched.append(to_numpy(torch.stack(depths, 1).cpu()))
             carry = feats[:, self.stride:]
         out = np.concatenate(fetched, 1)  # [B, T_max - lw + 1, S, H, W]
         return [out[i, :t - lw + 1] for i, t in enumerate(ts)]

@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from estdepth_tpu_torch.models.est_transformer import EpipolarTransformer
-from estdepth_tpu_torch.models.layers import conv_bn, upsample_nearest
+from estdepth_tpu_torch.models.layers import (
+    Conv2d, Conv3d, conv_bn, upsample_nearest,
+)
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.ops.warp import frustum_warp
 
@@ -52,7 +54,7 @@ def stereo_head(channels: int) -> nn.Sequential:
     """convbnrelu_3d(16) + Conv3d(16 -> 1, k1, bias) (decoder :104-112)."""
     return nn.Sequential(conv_bn(channels, channels, 3, 1, dims=3,
                                  act="relu"),
-                         nn.Conv3d(channels, 1, 1))
+                         Conv3d(channels, 1, 1))
 
 
 def _head_logits(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -84,8 +86,8 @@ class DepthHybridDecoder(nn.Module):
         self.upconv_1_1 = ConvBlock(32 + enc[0], 32)
         self.upconv_0_0 = ConvBlock(32, 16)
         self.upconv_0_1 = ConvBlock(16, 16)
-        self.dispconv_1 = nn.Conv2d(32, 1, 3, padding=1)
-        self.dispconv_0 = nn.Conv2d(16, 1, 3, padding=1)
+        self.dispconv_1 = Conv2d(32, 1, 3, padding=1)
+        self.dispconv_0 = Conv2d(16, 1, 3, padding=1)
 
         bc = base_channels
         self.dres0 = nn.Sequential(*conv_bn_relu_3d(bc, bc),

@@ -11,7 +11,11 @@ neighbours at all h = 0 (the reference's zero-h fallback, :78-79).
 The attention stage is ops/cuda/epipolar_attention: its plain PyTorch
 version by default, and with `use_fused_attention` (the counterpart of the
 JAX module's `use_pallas`) the wrapper that launches the CUDA kernel on
-CUDA tensors.
+CUDA tensors. Both compute the logits and the softmax in float32 and
+return the values' dtype. On bf16 volumes (a bf16 model) the GRU's
+convolutions and gates run in bf16 and its GroupNorms normalize in
+float32 and return bf16 (models/layers.py), as the JAX module with
+`dtype=bfloat16`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from estdepth_tpu_torch.models.layers import Conv3d, GroupNorm
 from estdepth_tpu_torch.ops.cuda.epipolar_attention import (
     epipolar_attention, epipolar_attention_plain,
 )
@@ -37,11 +42,11 @@ class EpipolarTransformer(nn.Module):
         c = channels
         self.channels = c
         self.use_fused_attention = use_fused_attention
-        self.gate_conv = nn.Conv3d(2 * c, 2 * c, 3, padding=1)
-        self.output_conv = nn.Conv3d(2 * c, c, 3, padding=1)
-        self.reset_gate_norm = nn.GroupNorm(1, c, eps=1e-5)
-        self.update_gate_norm = nn.GroupNorm(1, c, eps=1e-5)
-        self.output_norm = nn.GroupNorm(1, c, eps=1e-5)
+        self.gate_conv = Conv3d(2 * c, 2 * c, 3, padding=1)
+        self.output_conv = Conv3d(2 * c, c, 3, padding=1)
+        self.reset_gate_norm = GroupNorm(1, c, eps=1e-5)
+        self.update_gate_norm = GroupNorm(1, c, eps=1e-5)
+        self.output_norm = GroupNorm(1, c, eps=1e-5)
 
     def forward(
         self,

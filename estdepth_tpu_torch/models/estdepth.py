@@ -9,6 +9,13 @@ stack. The module tree carries the reference's names (`matchingFeature`,
 `semanticFeature.encoder`, `CostRegNet`, `pre0/1/2`), so its state_dict is
 a reference checkpoint and the other way round.
 
+`cfg.compute_dtype` is the dtype the network computes in, as the torch
+dtype `compute_dtype`: the frames are cast to it after their
+normalization and given matching features on entry, and every layer
+computes in the dtype it is given (models/layers.py). The parameters,
+BatchNorm's statistics, the softmaxes and the depth outputs stay float32,
+and the returned key/value state is in the compute dtype.
+
 The module rests in eval mode (BatchNorm on its running statistics).
 `forward(..., train=True)` switches it to train mode for that call, as the
 JAX module's `train` argument does: BatchNorm normalizes with the batch's
@@ -23,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from estdepth_tpu_torch.config import ModelConfig
+from estdepth_tpu_torch.config import ModelConfig, torch_dtype
 from estdepth_tpu_torch.models.decoder import DepthHybridDecoder
 from estdepth_tpu_torch.models.layers import conv_bn, init_weights
 from estdepth_tpu_torch.models.memory import ESTMemory
@@ -35,12 +42,15 @@ from estdepth_tpu_torch.ops.geometry import (
 from estdepth_tpu_torch.ops.warp import plane_sweep_warp
 
 
-def _normalize_images(imgs: torch.Tensor) -> torch.Tensor:
-    """0..255 frames (uint8 or float) -> [-1, 1] (model_hybrid.py:119).
-    The uint8 -> float cast runs on the tensor's device and is exact."""
+def _normalize_images(imgs: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """0..255 frames (uint8 or float) -> [-1, 1] (model_hybrid.py:119) in
+    float32, then cast to the compute dtype (models/estdepth.py:242-246 of
+    the JAX package). The uint8 -> float cast runs on the tensor's device
+    and is exact."""
     if not imgs.is_floating_point():
         imgs = imgs.float()
-    return 2.0 * (imgs / 255.0) - 1.0
+    return (2.0 * (imgs / 255.0) - 1.0).to(dtype)
 
 
 class DepthNetHybrid(nn.Module):
@@ -49,6 +59,7 @@ class DepthNetHybrid(nn.Module):
         (models/layers.init_weights); load a state_dict for real ones."""
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = torch_dtype(cfg.compute_dtype)
         self.matchingFeature = PSMFeatureNet()
         self.semanticFeature = ResNetEncoder(cfg.resnet)
         self.CostRegNet = DepthHybridDecoder(
@@ -87,7 +98,7 @@ class DepthNetHybrid(nn.Module):
         return cands[None].expand(batch, -1)
 
     def _matching(self, imgs: torch.Tensor) -> torch.Tensor:
-        x = _normalize_images(imgs).permute(0, 3, 1, 2)
+        x = _normalize_images(imgs, self.compute_dtype).permute(0, 3, 1, 2)
         return self.matchingFeature(x).permute(0, 2, 3, 1)
 
     def compute_matching(self, imgs: torch.Tensor) -> torch.Tensor:
@@ -194,11 +205,13 @@ class DepthNetHybrid(nn.Module):
                 "forward-only (no gradient, as the TPU kernel); train with "
                 "use_fused_attention=False")
         with self._mode(train):
-            x = _normalize_images(imgs)
+            x = _normalize_images(imgs, self.compute_dtype)
             if matching_feats is None:
                 matching_feats = self._matching(
                     imgs.reshape(b * v, h_img, w_img, 3)
                 ).reshape(b, v, h_img // 4, w_img // 4, -1)
+            else:
+                matching_feats = matching_feats.to(self.compute_dtype)
             semantic = self.semanticFeature(
                 x[:, 1:1 + t].reshape(b * t, h_img, w_img, 3)
                 .permute(0, 3, 1, 2))

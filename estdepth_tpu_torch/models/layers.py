@@ -28,6 +28,30 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def _conv_in_input_dtype(conv, x: torch.Tensor) -> torch.Tensor:
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's dtype; float32 parameters."""
+
+    forward = _conv_in_input_dtype
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d in its input's dtype; float32 parameters."""
+
+    forward = _conv_in_input_dtype
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm computed in float32, returned in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
 def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
             pad: int | None = None, dilation: int = 1, dims: int = 2,
             zero_bn_scale: bool = False, act: str | None = None
@@ -40,8 +64,8 @@ def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
     pad = kernel // 2 if pad is None else pad
     if dilation > 1:
         pad = dilation
-    conv_cls, bn_cls = ((nn.Conv2d, nn.BatchNorm2d) if dims == 2
-                        else (nn.Conv3d, nn.BatchNorm3d))
+    conv_cls, bn_cls = ((Conv2d, nn.BatchNorm2d) if dims == 2
+                        else (Conv3d, nn.BatchNorm3d))
     conv = conv_cls(cin, cout, kernel, stride, pad, dilation, bias=False)
     conv.he_init = True
     bn = bn_cls(cout, eps=1e-5)

@@ -13,7 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from estdepth_tpu_torch.models.layers import conv_bn, he_conv, resize_bilinear
+from estdepth_tpu_torch.models.layers import (
+    Conv2d, conv_bn, he_conv, resize_bilinear,
+)
 
 
 class PSMBasicBlock(nn.Module):
@@ -74,7 +76,7 @@ class PSMFeatureNet(nn.Module):
             ))
         self.lastconv = nn.Sequential(
             conv_bn(320, 128, 3, 1), nn.ReLU(inplace=True),
-            he_conv(nn.Conv2d(128, 32, 1, bias=False)),
+            he_conv(Conv2d(128, 32, 1, bias=False)),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from estdepth_tpu_torch.models.layers import conv_bn, he_conv
+from estdepth_tpu_torch.models.layers import Conv2d, conv_bn, he_conv
 
 _STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -25,8 +25,8 @@ _STAGES = {
 
 
 def _conv(cin, cout, kernel, stride=1):
-    return he_conv(nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
-                             bias=False))
+    return he_conv(Conv2d(cin, cout, kernel, stride, kernel // 2,
+                          bias=False))
 
 
 def _bn(c, zero=False):

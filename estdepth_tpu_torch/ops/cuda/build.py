@@ -111,39 +111,68 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# the element types a kernel has an instance for, and their symbols' suffix
+INSTANCES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+VECTOR_BYTES = 16  # a kernel's loads and stores: float4, or 8 bfloat16
+
+
 class Kernel:
-    """One C entry point of csrc/<source>.cu and its count of launches.
+    """The C entry points of csrc/<source>.cu, one per element type
+    (`<stem>_f32`, `<stem>_bf16`: one templated body, two instances), and
+    their counts of launches.
 
-    `argtypes` are set before the first call: without them ctypes passes a
-    pointer as a 32-bit int and cuts it. The entry point returns
-    cudaGetLastError() after its launch; a non-zero code raises.
-    `launches` grows by one for every launch that returned 0."""
+    `argtypes` are set before an entry point's first call: without them
+    ctypes passes a pointer as a 32-bit int and cuts it. The entry point
+    returns cudaGetLastError() after its launch; a non-zero code raises.
+    `launches` grows by one for every launch that returned 0, of either
+    instance, and `launches_bf16` for those of the bfloat16 instance."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, stem: str, argtypes: list):
         self.source = source
-        self.symbol = symbol
+        self.stem = stem
         self.argtypes = argtypes
         self.launches = 0
-        self._fn = None
+        self.launches_bf16 = 0
+        self._fns = {}
 
-    def __call__(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(load(self.source), self.symbol)
+    def symbol(self, dtype: torch.dtype) -> str:
+        return f"{self.stem}_{INSTANCES[dtype]}"
+
+    def __call__(self, dtype: torch.dtype, *args) -> None:
+        """Launch the instance for `dtype` (float32 or bfloat16)."""
+        fn = self._fns.get(dtype)
+        if fn is None:
+            fn = getattr(load(self.source), self.symbol(dtype))
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        status = self._fn(*args)
+            self._fns[dtype] = fn
+        status = fn(*args)
         if status != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {status}")
+            raise RuntimeError(f"{self.symbol(dtype)}: CUDA error {status}")
         self.launches += 1
+        if dtype == torch.bfloat16:
+            self.launches_bf16 += 1
+
+
+def require_channels(name: str, shape, dtype: torch.dtype) -> None:
+    """Raise unless a voxel's C channels of `dtype` are whole 16-byte
+    vectors: C % 4 == 0 in float32, C % 8 == 0 in bfloat16."""
+    per = VECTOR_BYTES // dtype.itemsize
+    if shape[-1] % per:
+        raise ValueError(f"{name}: {tuple(shape)} in {dtype}, the kernel "
+                         f"takes C % {per} == 0")
 
 
 def _require_basics(t: torch.Tensor, name: str, shape,
-                    device: torch.device, allow_grad: bool = False) -> None:
+                    device: torch.device, allow_grad: bool = False,
+                    dtype: torch.dtype | None = None) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: {t.dtype}; the kernels take float32 only")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: {t.dtype}, expected {dtype}")
+    if t.dtype not in INSTANCES:
+        raise TypeError(f"{name}: {t.dtype}; the kernels take float32 or "
+                        f"bfloat16")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -154,31 +183,37 @@ def _require_basics(t: torch.Tensor, name: str, shape,
 
 
 def require(t: torch.Tensor, name: str, shape, device: torch.device,
-            allow_grad: bool = False) -> None:
-    """Raise unless t is a contiguous float32 tensor of `shape` on `device`:
-    the kernels take nothing else. Only the sampled volume of a warp may
-    require grad (`allow_grad`): `sample_with_plain_grad` gives it one."""
-    _require_basics(t, name, shape, device, allow_grad)
+            allow_grad: bool = False,
+            dtype: torch.dtype | None = None) -> None:
+    """Raise unless t is a contiguous tensor of `shape` on `device` in
+    `dtype`, or, with no `dtype`, in float32 or bfloat16 (a sampled volume:
+    the element types the kernels have instances for): the kernels take
+    nothing else. Only the sampled volume of a warp may require grad
+    (`allow_grad`): `sample_with_plain_grad` gives it one."""
+    _require_basics(t, name, shape, device, allow_grad, dtype)
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
 
 def require_voxel_rows(t: torch.Tensor, name: str, shape,
-                       device: torch.device) -> tuple[list[int], int]:
-    """The strided form of `require`, for a float32 view
-    [*lead, D, H, W, C] whose voxels are rows of C adjacent floats at one
-    pitch: the channel stride is 1 and (D, H, W) collapse to a voxel index
-    with stride `pitch` >= C, as in a channel slice of a wider contiguous
-    volume. The leading dims may have any stride. Rows must be 16-byte
-    aligned for the kernels' float4 loads. Returns (leading strides,
+                       device: torch.device,
+                       dtype: torch.dtype | None = None
+                       ) -> tuple[list[int], int]:
+    """The strided form of `require`, for a float32 or bfloat16 (or
+    `dtype`) view [*lead, D, H, W, C] whose voxels are rows of C adjacent
+    elements at one pitch: the channel stride is 1 and (D, H, W) collapse
+    to a voxel index with stride `pitch` >= C, as in a channel slice of a
+    wider contiguous volume. The leading dims may have any stride. Rows
+    must be 16-byte aligned for the kernels' 16-byte loads: the pitch, the
+    leading strides and the address in bytes. Returns (leading strides,
     pitch) in elements, or raises."""
-    _require_basics(t, name, shape, device)
+    _require_basics(t, name, shape, device, dtype=dtype)
     *lead, d, h, w, c = shape
     strides = t.stride()
     if c > 1 and strides[-1] != 1:
         raise ValueError(f"{name}: channel stride {strides[-1]}, the "
                          f"kernel reads a voxel's channels as adjacent "
-                         f"floats")
+                         f"elements")
     pitch = None
     for size, stride, per in zip((d, h, w), strides[-4:-1], (h * w, w, 1)):
         if size == 1:
@@ -190,9 +225,11 @@ def require_voxel_rows(t: torch.Tensor, name: str, shape,
     pitch = c if pitch is None else pitch
     lead_strides = [0 if n == 1 else s
                     for n, s in zip(lead, strides[:len(lead)])]
-    if pitch < c or any(s % 4 for s in (pitch, *lead_strides)) or (
-            t.data_ptr() % 16):
-        raise ValueError(f"{name}: rows of {c} floats at pitch {pitch}, "
+    size = t.element_size()
+    if pitch < c or any(s * size % VECTOR_BYTES
+                        for s in (pitch, *lead_strides)) or (
+            t.data_ptr() % VECTOR_BYTES):
+        raise ValueError(f"{name}: rows of {c} {t.dtype} at pitch {pitch}, "
                          f"strides {tuple(strides)}: not 16-byte aligned "
                          f"rows")
     return lead_strides, pitch

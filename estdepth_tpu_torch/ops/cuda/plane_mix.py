@@ -9,8 +9,11 @@ package: the z-mix per SOURCE pixel, then one bilinear sample per voxel at
 the exact (x, y). The zi field is computed in PyTorch by the caller
 (ops/warp_exact_z.zi_field) and read by both.
 
-The TPU function's bf16 transport (channel pairs packed as int32) has no
-counterpart; the wrapper raises on bf16 volumes.
+The volume is float32 or bfloat16 (the kernel's two instances; C % 4 == 0
+or C % 8 == 0), zi and the coordinates float32, the result in the volume's
+dtype. A bfloat16 volume is mixed and sampled in float32 and rounded once,
+where the TPU function, which moves channel pairs packed as int32 lanes
+between its kernels, also rounds its two intermediates to bfloat16.
 
 Gradient, as the JAX package's `custom_vjp` (_frustum_diff_bwd): the kernel
 is forward-only; the backward is autograd of the plain version with respect
@@ -25,11 +28,11 @@ import ctypes
 import torch
 
 from estdepth_tpu_torch.ops.cuda import build, library
-from estdepth_tpu_torch.ops.sampling import bilinear_sample
+from estdepth_tpu_torch.ops.sampling import bilinear_sample, upcast_half
 from estdepth_tpu_torch.ops.warp_exact_z import EPS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = build.Kernel("frustum_warp_plane_mix", "frustum_warp_plane_mix_f32",
+KERNEL = build.Kernel("frustum_warp_plane_mix", "frustum_warp_plane_mix",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 
@@ -61,29 +64,32 @@ def z_mix(volume: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
 def plane_mix_resample_plain(volume: torch.Tensor, zi: torch.Tensor,
                              x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
-    -> [B, D, H, W, C]. Plain version of kernel 4."""
+    -> [B, D, H, W, C] in volume's dtype. Plain version of kernel 4: a
+    bfloat16 volume is mixed and sampled in float32 and rounded once."""
     b, d, h, w, c = volume.shape
-    mixed = z_mix(volume, zi).reshape(b * d, h, w, c)
+    mixed = z_mix(upcast_half(volume), zi).reshape(b * d, h, w, c)
     out = bilinear_sample(mixed, x.reshape(b * d, h * w),
                           y.reshape(b * d, h * w))
-    return out.reshape(b, d, h, w, c)
+    return out.reshape(b, d, h, w, c).to(volume.dtype)
 
 
 def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor) -> torch.Tensor:
     b, d, h, w, c = volume.shape
-    if c % 4 or d < 2:
+    if d < 2:
         raise ValueError(f"plane_mix_resample: volume {tuple(volume.shape)} "
-                         f"needs C % 4 == 0 and D >= 2")
+                         f"needs D >= 2")
     dev = volume.device
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
-    build.require(zi, "zi", (b, d, h * w), dev)
-    build.require(x, "x", (b, d * h * w), dev)
-    build.require(y, "y", (b, d * h * w), dev)
+    build.require_channels("plane_mix_resample: volume", volume.shape,
+                           volume.dtype)
+    build.require(zi, "zi", (b, d, h * w), dev, dtype=torch.float32)
+    build.require(x, "x", (b, d * h * w), dev, dtype=torch.float32)
+    build.require(y, "y", (b, d * h * w), dev, dtype=torch.float32)
     out = torch.empty_like(volume)
     with torch.cuda.device(dev):  # the C entry launches there
-        KERNEL(volume.data_ptr(), zi.data_ptr(), x.data_ptr(), y.data_ptr(),
-               out.data_ptr(), b, d, h, w, c,
+        KERNEL(volume.dtype, volume.data_ptr(), zi.data_ptr(),
+               x.data_ptr(), y.data_ptr(), out.data_ptr(), b, d, h, w, c,
                torch.cuda.current_stream().cuda_stream)
     return out
 

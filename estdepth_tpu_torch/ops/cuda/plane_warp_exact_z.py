@@ -12,9 +12,12 @@ the float32 reciprocal that PyTorch multiplies by when it divides a tensor
 by a scalar on the card, which keeps the kernel bit-equal to the plain
 version.
 
-The TPU function's packed bf16 transport of (A, s) has no counterpart: the
-kernel keeps A and s in registers. A bf16 model is not ported yet, and the
-wrapper raises on bf16 volumes.
+The volume is float32 or bfloat16 (the kernel's two instances; C % 4 == 0
+or C % 8 == 0), zi and the coordinates float32, the result in the volume's
+dtype: A and s are float32 for either (ops/warp_exact_z.py), and a
+bfloat16 result is rounded once. The TPU function's packed bf16 transport
+of (A, s) between its kernels has no counterpart: this kernel keeps A and s
+in registers, so no transport halves any traffic.
 
 Gradient, as the JAX package's `custom_vjp` (_frustum_exact_z_bwd): the
 kernel is forward-only; the backward is autograd of the plain version with
@@ -34,7 +37,7 @@ from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = build.Kernel(
-    "frustum_warp_exact_z", "frustum_warp_exact_z_f32",
+    "frustum_warp_exact_z", "frustum_warp_exact_z",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 
@@ -43,21 +46,23 @@ def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor, z: torch.Tensor, depth_min: float,
             depth_interval: float) -> torch.Tensor:
     b, d, h, w, c = volume.shape
-    if c % 4 or d < 2:
+    if d < 2:
         raise ValueError(f"exact_z_resample: volume {tuple(volume.shape)} "
-                         f"needs C % 4 == 0 and D >= 2")
+                         f"needs D >= 2")
     dev = volume.device
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
-    build.require(zi, "zi", (b, d, h * w), dev)
+    build.require_channels("exact_z_resample: volume", volume.shape,
+                           volume.dtype)
+    build.require(zi, "zi", (b, d, h * w), dev, dtype=torch.float32)
     for name, t in (("x", x), ("y", y), ("z", z)):
-        build.require(t, name, (b, d * h * w), dev)
+        build.require(t, name, (b, d * h * w), dev, dtype=torch.float32)
     out = torch.empty_like(volume)
     # the f32 reciprocal PyTorch uses for a tensor / scalar on the card
     inv_interval = float(np.float32(1.0) / np.float32(depth_interval))
     with torch.cuda.device(dev):  # the C entry launches there
-        KERNEL(volume.data_ptr(), zi.data_ptr(), x.data_ptr(), y.data_ptr(),
-               z.data_ptr(), out.data_ptr(), b, d, h, w, c,
-               float(depth_min), inv_interval,
+        KERNEL(volume.dtype, volume.data_ptr(), zi.data_ptr(),
+               x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(),
+               b, d, h, w, c, float(depth_min), inv_interval,
                torch.cuda.current_stream().cuda_stream)
     return out
 

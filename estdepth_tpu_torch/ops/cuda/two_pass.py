@@ -15,7 +15,11 @@ keeps no pass-1 image: pass 2 at (i, w) reads column w of it at rows y0
 and y0 + 1 only, so the kernel computes those two values from four gathers of
 the source map and blends them, the same operations in the same order (bit
 for bit the two passes). On a CPU tensor it runs
-`two_pass_resample_plain`, the two passes written with `torch.gather`. The
+`two_pass_resample_plain`, the two passes written with `torch.gather`.
+`src` is float32 or bfloat16 (the kernel's two instances; C % 4 == 0 or
+C % 8 == 0), the line coefficients and coordinates float32, the result in
+src's dtype. A bfloat16 map is resampled in float32 and rounded once,
+where the TPU kernel also rounds its pass-1 image to bfloat16. The
 line coefficients are computed in PyTorch by the caller (`line_coeffs`),
 as the JAX package computes them outside its `pallas_call`.
 
@@ -33,10 +37,10 @@ import torch
 
 from estdepth_tpu_torch.ops.cuda import build, library
 from estdepth_tpu_torch.ops.cuda.plane_warp import plane_sweep_sample_plain
-from estdepth_tpu_torch.ops.sampling import corner
+from estdepth_tpu_torch.ops.sampling import corner, upcast_half
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = build.Kernel("two_pass_resample", "two_pass_resample_f32",
+KERNEL = build.Kernel("two_pass_resample", "two_pass_resample",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 
@@ -69,8 +73,10 @@ def two_pass_resample_plain(src: torch.Tensor, ab: torch.Tensor,
                             x: torch.Tensor, y: torch.Tensor,
                             planes_per_map: int) -> torch.Tensor:
     """src [M, H, W, C], ab [P, 2, W], exact source x, y [P, H*W] with
-    P = M * planes_per_map -> [P, H, W, C]. Plain version of kernel 3."""
+    P = M * planes_per_map -> [P, H, W, C] in src's dtype. Plain version of
+    kernel 3: a bfloat16 src is resampled in float32 and rounded once."""
     m, h, w, c = src.shape
+    dtype, src = src.dtype, upcast_half(src)
     p = ab.shape[0]
     dev = src.device
     rows = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
@@ -93,25 +99,23 @@ def two_pass_resample_plain(src: torch.Tensor, ab: torch.Tensor,
     h1 = torch.gather(j, 1, (idx + w).expand(-1, -1, c))
     out = _mix(h0, h1, f2.reshape(p, h * w, 1).to(src.dtype))
     out = torch.where(valid.reshape(p, h * w, 1), out, torch.zeros_like(out))
-    return out.reshape(p, h, w, c)
+    return out.reshape(p, h, w, c).to(dtype)
 
 
 def _launch(src: torch.Tensor, ab: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor, planes_per_map: int) -> torch.Tensor:
     m, h, w, c = src.shape
-    if c % 4:
-        raise ValueError(f"two_pass_resample: C = {c}, the kernel takes "
-                         f"C % 4 == 0")
     p = m * planes_per_map
     dev = src.device
     build.require(src, "src", (m, h, w, c), dev, allow_grad=True)
-    build.require(ab, "ab", (p, 2, w), dev)
-    build.require(x, "x", (p, h * w), dev)
-    build.require(y, "y", (p, h * w), dev)
+    build.require_channels("two_pass_resample: src", src.shape, src.dtype)
+    build.require(ab, "ab", (p, 2, w), dev, dtype=torch.float32)
+    build.require(x, "x", (p, h * w), dev, dtype=torch.float32)
+    build.require(y, "y", (p, h * w), dev, dtype=torch.float32)
     out = torch.empty((p, h, w, c), dtype=src.dtype, device=dev)
     with torch.cuda.device(dev):  # the C entry launches there
-        KERNEL(src.data_ptr(), ab.data_ptr(), x.data_ptr(), y.data_ptr(),
-               out.data_ptr(), p, h, w, c, planes_per_map,
+        KERNEL(src.dtype, src.data_ptr(), ab.data_ptr(), x.data_ptr(),
+               y.data_ptr(), out.data_ptr(), p, h, w, c, planes_per_map,
                torch.cuda.current_stream().cuda_stream)
     return out
 

@@ -10,6 +10,11 @@ reproduce: clip the coordinate to [0, size-1], the base index to
 [0, size-2], take the fraction against the clipped coordinate, and zero
 by the UNCLIPPED coordinate.
 
+A bfloat16 (or float16) volume is sampled in float32 and the result
+rounded once to its dtype (round to nearest even), as the kernels' bf16
+instances do; a float32 or float64 volume is sampled in its own dtype.
+The coordinates and fractions are float32 for every dtype.
+
 `F.grid_sample` is not used: its zeros padding fades each out-of-range
 corner separately, which differs from the hard rule at the edges.
 """
@@ -17,6 +22,13 @@ corner separately, which differs from the hard rule at the edges.
 from __future__ import annotations
 
 import torch
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def upcast_half(src: torch.Tensor) -> torch.Tensor:
+    """src in the dtype it is sampled in: float32 for a half dtype."""
+    return src.float() if src.dtype in _HALF else src
 
 
 def corner(q: torch.Tensor, size: int):
@@ -28,8 +40,10 @@ def corner(q: torch.Tensor, size: int):
 
 def bilinear_sample(src: torch.Tensor, x: torch.Tensor,
                     y: torch.Tensor) -> torch.Tensor:
-    """Sample src [B, H, W, C] at pixel coords x, y [B, N] -> [B, N, C]."""
+    """Sample src [B, H, W, C] at pixel coords x, y [B, N] -> [B, N, C]
+    in src's dtype."""
     b, h, w, c = src.shape
+    dtype, src = src.dtype, upcast_half(src)
     x = x.float()
     y = y.float()
     valid = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
@@ -50,15 +64,17 @@ def bilinear_sample(src: torch.Tensor, x: torch.Tensor,
     top = v00 + wx * (v01 - v00)
     bot = v10 + wx * (v11 - v10)
     out = top + wy * (bot - top)
-    return out * valid[..., None].to(src.dtype)
+    return (out * valid[..., None].to(src.dtype)).to(dtype)
 
 
 def trilinear_sample(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                      z: torch.Tensor) -> torch.Tensor:
     """Sample src [B, D, H, W, C] at voxel coords x, y, z [B, N]
-    -> [B, N, C]; zero unless x in [0, W-1], y in [0, H-1], z in [0, D-1].
-    The x lerp is innermost, then y, then z, as in the stacked sampler."""
+    -> [B, N, C] in src's dtype; zero unless x in [0, W-1], y in
+    [0, H-1], z in [0, D-1]. The x lerp is innermost, then y, then z, as in
+    the stacked sampler."""
     b, d, h, w, c = src.shape
+    dtype, src = src.dtype, upcast_half(src)
     x, y, z = x.float(), y.float(), z.float()
     valid = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
              & (z >= 0) & (z <= d - 1))
@@ -87,4 +103,4 @@ def trilinear_sample(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     front, back = plane(z0), plane(z1)
     out = front + wz * (back - front)
-    return out * valid[..., None].to(src.dtype)
+    return (out * valid[..., None].to(src.dtype)).to(dtype)

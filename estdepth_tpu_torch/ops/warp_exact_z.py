@@ -69,11 +69,21 @@ def tap_and_slope_fields(volume: torch.Tensor, zi: torch.Tensor):
 
 def apply_exact_z_correction(a_t: torch.Tensor, s_t: torch.Tensor,
                              zi_star: torch.Tensor, nplanes: int,
-                             out_dtype) -> torch.Tensor:
-    """out = A~ + clip(zi*) s~, zeroed outside the eps-padded z window.
+                             out_dtype,
+                             z_origin: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """out = A~ + (clip(zi*) - z_origin) s~, zeroed outside the eps-padded
+    z window, computed in float32 and cast to out_dtype.
 
-    a_t, s_t [P, N, C] resampled fields; zi_star [P, N]."""
+    a_t, s_t [P, N, C] resampled fields; zi_star [P, N]; z_origin [P] the
+    per-map index origin the A field was extrapolated to
+    (A = v0 + (z_origin - z0) s), default 0 as `tap_and_slope_fields`
+    makes it. A shifted origin is the same function in exact arithmetic
+    and keeps |A| near the volume's scale: the JAX package's packed bf16
+    TPU transport builds A that way."""
     zc = zi_star.clamp(0.0, nplanes - 1.0)
+    if z_origin is not None:
+        zc = zc - z_origin.float()[:, None]
     out = a_t.float() + zc[..., None] * s_t.float()
     valid = (zi_star >= -EPS) & (zi_star <= nplanes - 1.0 + EPS)
     return (out * valid[..., None].float()).to(out_dtype)

@@ -22,6 +22,11 @@ Artifact layout (`export_stream(...).save(dir)`):
     first.pt2       torch.export.save of the first window's program
     steady.pt2      the steady state's
 
+A bfloat16 model's programs hold its casts: the weights are stored in
+float32 and cast where the model casts them, the memory and the carried
+features are bfloat16 (the manifest's `memory_dtype`), and the op nodes
+launch the kernels' bf16 instances.
+
 Both programs take the window as `lwindow` (Joint: `seq_length`) separate
 float32 frames [B, H, W, 3] in 0..255 and stack them inside the program,
 so the runner keeps earlier frames on the device and uploads only the new
@@ -164,7 +169,7 @@ def _export(model, protocol: str, height: int, width: int, batch: int,
         "memory_size": memory_size,
         "ndepths": model.cfg.ndepths,
         "memory_channels": MEMORY_CHANNELS,
-        "memory_dtype": "float32",
+        "memory_dtype": _dtype_name(model.compute_dtype),
         "output_scales": list(output_scales),
         "output_dtype": _dtype_name(output_dtype),
     }
@@ -175,7 +180,7 @@ def _export(model, protocol: str, height: int, width: int, batch: int,
     memory = fresh_memory(manifest, dev)
     channels = model.matchingFeature.lastconv[-1].out_channels
     feats = torch.zeros(batch, window - new_frames, height // 4, width // 4,
-                        channels, device=dev)
+                        channels, dtype=model.compute_dtype, device=dev)
     step = WindowStep(model, new_frames, output_scales, output_dtype,
                       joint=protocol == "joint")
     programs = []
@@ -196,7 +201,8 @@ def export_stream(model, *, height: int, width: int, batch: int = 1,
                   device=None) -> StreamArtifact:
     """The ESTM window step (eval/estm.ESTMRunner) as a serving artifact,
     exported on `device` (None: the CUDA device). `output_dtype` casts the
-    returned maps only (e.g. torch.bfloat16); the model stays float32."""
+    returned maps only (e.g. torch.bfloat16); the model computes in its
+    `compute_dtype`, which the memory and the carried features take."""
     return _export(model, "stream", height, width, batch, lwindow,
                    memory_size, output_scales, output_dtype, device)
 

@@ -32,8 +32,9 @@ from --seed, or --ckpt, a reference checkpoint (.ckpt/.pth/.pt/.tar) or a
 directory written by tools/train.py (its latest step). The defaults are
 the JAX tool's: 256x320 frames, 64 planes in [0.01, 10] m, ResNet-50.
 --no-exact-z, --exact-warp and --fused-attention pick the frustum warp and
-the attention kernel. Runs on the CUDA device unless --device cpu is
-given.
+the attention kernel; --bf16 runs the model in bfloat16, and --fetch-half
+fetches the scored maps as bfloat16. Runs on the CUDA device unless
+--device cpu is given.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ import numpy as np
 import torch
 
 from estdepth_tpu_torch.config import (
-    EvalConfig, ModelConfig, add_model_flags, resolve_device,
-    resolve_frustum_mode, set_fp32_numerics,
+    EvalConfig, ModelConfig, add_model_flags, compute_dtype_flag,
+    resolve_device, resolve_frustum_mode, set_fp32_numerics,
 )
 from estdepth_tpu_torch.data import io_utils
 from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
@@ -57,6 +58,7 @@ from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
+from estdepth_tpu_torch.eval.output import to_numpy
 from estdepth_tpu_torch.eval.metric_offline import compute_errors
 from estdepth_tpu_torch.eval.sequence import SequenceProcessor
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
@@ -82,7 +84,8 @@ def build_model(args) -> DepthNetHybrid:
         ndepths=args.ndepths, depth_min=args.depth_min,
         depth_max=args.depth_max, resnet=args.resnet,
         frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
-        use_fused_attention=args.fused_attention), seed=args.seed)
+        use_fused_attention=args.fused_attention,
+        compute_dtype=compute_dtype_flag(args)), seed=args.seed)
     if args.ckpt:
         if args.ckpt.endswith((".ckpt", ".pth", ".pt", ".tar")):
             state, unmatched = load_reference_checkpoint(args.ckpt,
@@ -194,7 +197,7 @@ def _start_fetch(out):
         return tuple(hosts) if isinstance(out, tuple) else hosts[0]
 
     if tensors[0].device.type != "cuda":
-        hosts = [t.numpy() for t in tensors]
+        hosts = [to_numpy(t) for t in tensors]
         return lambda: arrays(hosts)
     pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
               for t in tensors]
@@ -205,7 +208,7 @@ def _start_fetch(out):
 
     def wait():
         done.synchronize()
-        return arrays([h.numpy() for h in pinned])
+        return arrays([to_numpy(h) for h in pinned])
 
     return wait
 
@@ -337,15 +340,19 @@ def run(args, keep_maps: bool = False) -> dict:
     if not (args.synthetic or args.datapath):
         raise SystemExit("need --datapath or --synthetic")
     model = build_model(args)
+    # --fetch-half: the two scored maps cross to the host as bfloat16
+    fetch = torch.bfloat16 if args.fetch_half else None
     if args.scan:
         proc = SequenceProcessor(model, args.lwindow, args.memory_size,
                                  chunk=args.chunk,
-                                 output_scales=SCORED_SCALES, device=dev)
+                                 output_scales=SCORED_SCALES,
+                                 output_dtype=fetch, device=dev)
     else:
         runner = ESTMRunner(model, args.height, args.width, args.lwindow,
                             args.memory_size,
                             return_probs=args.reference_layout,
-                            output_scales=SCORED_SCALES, device=dev)
+                            output_scales=SCORED_SCALES, output_dtype=fetch,
+                            device=dev)
     if args.outdir:
         os.makedirs(args.outdir, exist_ok=True)
     total = new_result()
@@ -387,7 +394,8 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
                   resnet: int = 50, lwindow: int = 3, memory_size: int = 2,
                   scenes: int = 2, n_frames: int = 12, seed: int = 0,
                   device=None, frustum_mode: str = "plane_mix_exact_z",
-                  fused_attention: bool = False) -> dict:
+                  fused_attention: bool = False,
+                  compute_dtype: str = "float32") -> dict:
     """ESTM streaming over synthetic scenes (seeds 0..scenes-1) with random
     weights from `seed`, frame by frame (stream_scene): the per-frame
     latency the main path is measured by.
@@ -399,7 +407,8 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
     model = DepthNetHybrid(ModelConfig(
         ndepths=ndepths, depth_min=depth_min, depth_max=depth_max,
         resnet=resnet, frustum_mode=frustum_mode,
-        use_fused_attention=fused_attention), seed=seed)
+        use_fused_attention=fused_attention, compute_dtype=compute_dtype),
+        seed=seed)
     runner = ESTMRunner(model, height, width, lwindow, memory_size,
                         output_scales=SCORED_SCALES, device=dev)
     times, maps, errs = [], [], []
@@ -450,6 +459,10 @@ def parse_args(argv=None):
                         "(the same maps as streaming)")
     p.add_argument("--chunk", type=int, default=16,
                    help="frames per chunk with --scan")
+    p.add_argument("--fetch-half", action="store_true",
+                   help="fetch the two scored maps in bfloat16 instead of "
+                        "float32: half the device-to-host copy (the saved "
+                        "maps are float16 either way)")
     p.add_argument("--scenes", type=int, default=2,
                    help="synthetic scenes with --synthetic")
     p.add_argument("--frames", type=int, default=12,

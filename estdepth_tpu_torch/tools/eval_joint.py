@@ -26,9 +26,9 @@ at the GT's own resolution; --save-maps writes float16
 `{scene}_{window:04d}_{target}_depth.npy` (refined) and `_init.npy` (fused
 head, scale 2) plus a colorized image, --save-probs the init and refined
 probability maps. A scene whose maps are already in --outdir is skipped.
-Data, weights (--ckpt) and the warp flags as in tools/eval_estm.py; with
---synthetic, one synthetic scene of --max-windows windows (3). Runs on the
-CUDA device unless --device cpu is given.
+Data, weights (--ckpt), the warp flags and --bf16 as in
+tools/eval_estm.py; with --synthetic, one synthetic scene of --max-windows
+windows (3). Runs on the CUDA device unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -284,7 +284,7 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
                   est_on: bool = True, scan: bool = False,
                   frustum_mode: str = "plane_mix_exact_z",
                   fused_attention: bool = False, seed: int = 0,
-                  device=None) -> dict:
+                  device=None, compute_dtype: str = "float32") -> dict:
     """The Joint chain over one synthetic scene of
     (windows-1)*(seq_length-2) + seq_length frames, random weights from
     `seed`, through the tool's own loop.
@@ -299,7 +299,7 @@ def run_synthetic(height: int = 256, width: int = 320, ndepths: int = 64,
         max_windows=windows, no_est=not est_on, scan=scan, seed=seed,
         device=device, exact_warp=frustum_mode == "exact",
         exact_z=frustum_mode == "plane_mix_exact_z",
-        fused_attention=fused_attention)
+        fused_attention=fused_attention, bf16=compute_dtype == "bfloat16")
     res = run(args, keep_maps=True)
     return {"times": res["times"], "maps": np.stack(res["maps"]),
             "errors": res["errors"]}

@@ -10,17 +10,18 @@ the window step with the weights stored in each, exported on --device
 load_joint with --joint), on the card or the CPU, wherever they were
 exported. Weights: random from --seed, or --ckpt, a reference checkpoint
 (.ckpt/.pth/.pt/.tar) or a checkpoint directory of tools/train.py. The
-warp flags are the eval tools' (--exact-warp, --no-exact-z,
---fused-attention). --verify N streams N synthetic frames (N windows with
---joint) through the reloaded artifact and through the live ESTMRunner
-(JointRunner) and prints the max |depth delta|; above 1e-3 it writes
-DIR/VERIFY_FAILED, which the loaders refuse, and exits non-zero.
+warp and dtype flags are the eval tools' (--exact-warp, --no-exact-z,
+--fused-attention, --bf16: a bfloat16 model, whose manifest says
+"memory_dtype": "bfloat16"). --verify N streams N synthetic frames (N
+windows with --joint) through the reloaded artifact and through the live
+ESTMRunner (JointRunner) and prints the max |depth delta|; above 1e-3 it
+writes DIR/VERIFY_FAILED, which the loaders refuse, and exits non-zero.
 
-Not here, of the JAX tool's flags: --bf16 waits for the bf16 model;
---conv3d-as2d, --pallas-warp and --fast-frustum are TPU re-expressions,
-and the port picks its warps with the flags above; --precision does not
-apply, the port runs float32 with TF32 off; --platforms becomes --device,
-and the loader moves an artifact to the device it loads on.
+Not here, of the JAX tool's flags: --conv3d-as2d, --pallas-warp and
+--fast-frustum are TPU re-expressions, and the port picks its warps with
+the flags above; --precision does not apply, the port's float32 runs
+with TF32 off; --platforms becomes --device, and the loader moves an
+artifact to the device it loads on.
 """
 
 from __future__ import annotations
@@ -82,8 +83,8 @@ def parse_args(argv=None):
                    help="comma-separated output depth scales (default: the "
                         "refined scale-0 map only)")
     p.add_argument("--output-bf16", action="store_true",
-                   help="cast the returned depth maps to bfloat16 (the "
-                        "model stays float32)")
+                   help="cast the returned depth maps to bfloat16 "
+                        "(whatever the model's dtype, --bf16)")
     p.add_argument("--verify", type=int, default=0, metavar="N",
                    help="replay N synthetic frames (N windows with "
                         "--joint) through the reloaded artifact and the "

@@ -3,18 +3,18 @@
     python -m estdepth_tpu_torch.tools.profile_estm
         [--protocol estm|joint|train] [--frames 8]
         [--no-exact-z | --exact-warp] [--fused-attention] [--two-pass-warp]
-        [--serving] [--trace DIR]
+        [--bf16] [--serving] [--trace DIR]
 
 Runs one synthetic scene at the eval defaults (256x320, D = 64, ResNet-50,
-float32, random weights) through ESTMRunner (lwindow 3, memory 2; a step
-is one frame) or, with --protocol joint, through JointRunner (5-frame
-windows advancing by 3, a 1-entry memory; a step is one window of 3
-targets), or, with --protocol train, through the training step of
-train/trainer.py on 5-frame windows at batch 1 (a step is one optimizer
-update; the result fetched is the loss). With --serving (estm or joint)
-the step is exported first (serving.export_stream / export_joint, all 4
-depth scales, as the live runners return them), saved, loaded back and
-fed the scene's frames one by one: a step is then the frames a window
+float32, or bfloat16 with --bf16, random weights) through ESTMRunner
+(lwindow 3, memory 2; a step is one frame) or, with --protocol joint,
+through JointRunner (5-frame windows advancing by 3, a 1-entry memory; a
+step is one window of 3 targets), or, with --protocol train, through the
+training step of train/trainer.py on 5-frame windows at batch 1 (a step is
+one optimizer update; the result fetched is the loss). With --serving (estm
+or joint) the step is exported first (serving.export_stream / export_joint,
+all 4 depth scales, as the live runners return them), saved, loaded back
+and fed the scene's frames one by one: a step is then the frames a window
 adds (1, or 3 for Joint). Warms up on the first steps, times --frames
 steady-state steps
 without the profiler (the median step, and how much of it the host spends
@@ -48,7 +48,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from estdepth_tpu_torch import serving
 from estdepth_tpu_torch.config import (
-    ModelConfig, add_model_flags, resolve_frustum_mode, set_fp32_numerics,
+    ModelConfig, add_model_flags, compute_dtype_flag, resolve_frustum_mode,
+    set_fp32_numerics,
 )
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream, synthetic_window,
@@ -71,6 +72,8 @@ GROUPS = [
     ("groupnorm", r"RowwiseMoments|group_norm|GroupNorm"),
     ("layout / copy / cat", r"nhwcToNchw|nchwToNhwc|copy|Memcpy|"
                             r"transpose"),
+    # the complex GEMMs of cuDNN's FFT convolutions (float32 only)
+    ("conv FFT tiles (cuDNN)", r"fft|cf32cf32"),
     ("conv (cuDNN)", r"conv|cudnn|implicit|xmma|winograd|fft|sm90|sm80|"
                      r"wgrad|dgrad|fprop"),
     ("gemm", r"gemm|cutlass|cublas"),
@@ -113,7 +116,8 @@ def main(argv=None) -> None:
     model = DepthNetHybrid(ModelConfig(
         frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
         use_fused_attention=args.fused_attention,
-        two_pass_warp=args.two_pass_warp))
+        two_pass_warp=args.two_pass_warp,
+        compute_dtype=compute_dtype_flag(args)))
     n_steps = args.warmup + 2 * args.frames
     if args.serving:
         runner = _load_exported(model, cfg, args.protocol)
@@ -209,6 +213,7 @@ def main(argv=None) -> None:
         "fused_attention": model.cfg.use_fused_attention,
         "serving": args.serving,
         "two_pass_warp": model.cfg.two_pass_warp,
+        "compute_dtype": model.cfg.compute_dtype,
         "frames": n,
         "unprofiled_ms_per_frame": step_ms,
         "unprofiled_issue_ms_per_frame": issue_ms,

@@ -6,11 +6,13 @@
 
 The reference's recipe (train_hybrid.py): Adam 4e-5 with L2 4e-4, linear
 warm-up then multi-step decay, gradient clip 10 for epochs < 3 and 1 after,
-5-frame windows (3 targets), batch 1, float32. The defaults are the JAX
-tool's sizes (256x320, 64 planes in [0.01, 10] m, ResNet-50). The forward
-runs the CUDA warp kernels (the plane sweep, and the exact-z frustum warp
-of the EST fusion; --two-pass-warp sweeps through the fused two-pass
-resample instead); their gradients are the plain versions'.
+5-frame windows (3 targets), batch 1, float32; --bf16 computes in bfloat16
+(ModelConfig.compute_dtype) and keeps the parameters, the Adam state and
+BatchNorm's running statistics float32, as the JAX tool does. The defaults
+are the JAX tool's sizes (256x320, 64 planes in [0.01, 10] m, ResNet-50).
+The forward runs the CUDA warp kernels (the plane sweep, and the exact-z
+frustum warp of the EST fusion; --two-pass-warp sweeps through the fused
+two-pass resample instead); their gradients are the plain versions'.
 
 Data: ScanNet scenes (--datapath, data/scannet.py; colour is JPEG, read by
 the native reader where it builds, else by OpenCV), or synthetic scenes
@@ -26,9 +28,8 @@ on the CUDA device unless --device cpu is given.
 
 Not here, of the JAX tool's flags: --multihost, --coordinator,
 --num-processes and --process-id wait for data parallelism (DDP over NCCL);
---bf16 waits for the bf16 model; --fast-frustum, --pallas-warp and
---conv3d-as2d are TPU forms (the warp is chosen by --exact-warp and
---exact-z).
+--fast-frustum, --pallas-warp and --conv3d-as2d are TPU forms (the warp is
+chosen by --exact-warp and --exact-z).
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ import time
 import torch
 
 from estdepth_tpu_torch.config import (
-    ModelConfig, TrainConfig, resolve_device, resolve_frustum_mode,
-    set_fp32_numerics,
+    ModelConfig, TrainConfig, add_bf16_flag, compute_dtype_flag,
+    resolve_device, resolve_frustum_mode, set_fp32_numerics,
 )
 from estdepth_tpu_torch.data.pipeline import TrainLoader, prefetch_to_device
 from estdepth_tpu_torch.data.scannet import ScanNetTrainDataset
@@ -151,6 +152,7 @@ def parse_args(argv=None):
     p.add_argument("--sequential-cost-bn", action="store_true",
                    help="BatchNorm statistics per (target, neighbour) call "
                         "in the reference's loop order")
+    add_bf16_flag(p)
     p.add_argument("--device", type=str, default=None)
     return p.parse_args(argv)
 
@@ -204,7 +206,8 @@ def build(args, device):
         est_transformer=not args.no_est,
         frustum_mode=resolve_frustum_mode(args.exact_warp, args.exact_z),
         two_pass_warp=args.two_pass_warp,
-        sequential_cost_bn=args.sequential_cost_bn), seed=args.seed)
+        sequential_cost_bn=args.sequential_cost_bn,
+        compute_dtype=compute_dtype_flag(args)), seed=args.seed)
     model.to(device)
     if args.pretrained_encoder:
         encoder = load_pretrained_encoder(args.pretrained_encoder)

@@ -160,14 +160,25 @@ def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
 
 
 def test_wrapper_input_checks():
-    """The checks a wrapper runs before a launch, on CPU tensors."""
+    """The checks a wrapper runs before a launch, on CPU tensors. The
+    kernels have float32 and bfloat16 instances: both pass, every other
+    dtype raises, and a tensor held to one dtype (a coordinate: float32)
+    raises in the other."""
     dev = torch.device("cpu")
     ok = torch.zeros(2, 8)
     build.require(ok, "x", (2, 8), dev)
-    with pytest.raises(TypeError):
-        build.require(ok.double(), "x", (2, 8), dev)
-    with pytest.raises(TypeError):
-        build.require(ok.bfloat16(), "x", (2, 8), dev)
+    build.require(ok.bfloat16(), "x", (2, 8), dev)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            build.require(ok.to(dtype), "x", (2, 8), dev)
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        build.require(ok.bfloat16(), "x", (2, 8), dev, dtype=torch.float32)
+    # a voxel's channels must be whole 16-byte vectors: 4 float32, 8 bf16
+    build.require_channels("src", (2, 4), torch.float32)
+    build.require_channels("src", (2, 8), torch.bfloat16)
+    for c, dtype in ((6, torch.float32), (4, torch.bfloat16)):
+        with pytest.raises(ValueError, match="C %"):
+            build.require_channels("src", (2, c), dtype)
     with pytest.raises(ValueError, match="shape"):
         build.require(ok, "x", (2, 4), dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -208,8 +219,23 @@ def test_strided_voxel_rows_check():
     with pytest.raises(ValueError, match="16-byte"):
         build.require_voxel_rows(torch.zeros(b, d, h, w, c + 2)[..., 2:],
                                  "tk", (b, d, h, w, c), dev)
-    with pytest.raises(TypeError):
-        build.require_voxel_rows(tk.bfloat16(), "tk", (b, d, h, w, c), dev)
+    # bfloat16 rows: the same strides, alignment counted in bytes
+    half = warped.bfloat16()[..., c:]
+    assert build.require_voxel_rows(half, "wv", shape, dev) == (
+        [vox, n * vox], 2 * c)
+    assert build.require_voxel_rows(tk.bfloat16(), "tk", (b, d, h, w, c),
+                                    dev) == ([d * h * w * c], c)
+    with pytest.raises(ValueError, match="16-byte"):  # 4 bf16 = 8 bytes
+        build.require_voxel_rows(
+            torch.zeros(b, d, h, w, c + 4, dtype=torch.bfloat16)[..., 4:],
+            "tk", (b, d, h, w, c), dev)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            build.require_voxel_rows(tk.to(dtype), "tk", (b, d, h, w, c),
+                                     dev)
+    with pytest.raises(TypeError, match="expected torch.bfloat16"):
+        build.require_voxel_rows(tk, "tk", (b, d, h, w, c), dev,
+                                 dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shape"):
         build.require_voxel_rows(tk, "tk", (b, d, h, w, 8), dev)
 

@@ -134,3 +134,17 @@ def model_pair(views=3, frustum_mode="plane_mix_exact_z", seed=0,
         frustum_mode=frustum_mode, **port_kwargs))
     tm.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jm, variables, tm
+
+
+def bf16_models(views=5):
+    """(JAX bf16 model, JAX float32 model, their variables, the port's bf16
+    model with the same weights), both packages at the tiny configuration:
+    ModelConfig(compute_dtype="bfloat16") against
+    DepthNetHybrid(dtype=jnp.bfloat16)."""
+    jm, variables, tm = model_pair(views=views,
+                                   jax_kwargs=dict(dtype=jnp.bfloat16),
+                                   compute_dtype="bfloat16")
+    jm32 = JaxModel(ndepths=ND, depth_min=DMIN, depth_max=DMAX, resnet=18,
+                    est_transformer=True,
+                    **JAX_WARP_FLAGS["plane_mix_exact_z"])
+    return jm, jm32, variables, tm

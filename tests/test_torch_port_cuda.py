@@ -106,15 +106,31 @@ def test_exact_z_kernel_matches_plain(dev):
 
 
 def test_kernels_refuse_bf16_and_bad_shapes(dev):
+    """Since the bf16 model a bfloat16 volume launches the kernel's bf16
+    instance (and equals the plain version, the bf16 tests below); a
+    float16 volume, bfloat16 coordinates and ragged channels still
+    raise."""
     vol = torch.zeros(1, 4, 6, 8, 8, device=dev)
     coords = torch.zeros(1, 4 * 6 * 8, device=dev)
     zi = torch.zeros(1, 4, 48, device=dev)
+    before = plane_warp_exact_z.KERNEL.launches_bf16
+    out = plane_warp_exact_z.exact_z_resample(vol.bfloat16(), zi, coords,
+                                              coords, coords, 0.5, 0.1)
+    assert out.dtype == torch.bfloat16
+    assert plane_warp_exact_z.KERNEL.launches_bf16 == before + 1
     with pytest.raises(TypeError):
-        plane_warp_exact_z.exact_z_resample(vol.bfloat16(), zi, coords,
+        plane_warp_exact_z.exact_z_resample(vol.half(), zi, coords,
+                                            coords, coords, 0.5, 0.1)
+    with pytest.raises(TypeError):
+        plane_warp_exact_z.exact_z_resample(vol, zi, coords.bfloat16(),
                                             coords, coords, 0.5, 0.1)
     with pytest.raises(ValueError):
         plane_warp_exact_z.exact_z_resample(vol[..., :6].contiguous(), zi,
                                             coords, coords, coords, 0.5, 0.1)
+    with pytest.raises(ValueError):  # 4 bf16 channels: half a vector
+        plane_warp_exact_z.exact_z_resample(
+            vol[..., :4].contiguous().bfloat16(), zi, coords, coords,
+            coords, 0.5, 0.1)
     with pytest.raises(ValueError):
         plane_warp.plane_sweep_sample(vol[0, 0], coords[:, :-1],
                                       coords[:, :-1])
@@ -168,11 +184,16 @@ def test_attention_kernel_matches_plain(dev, valid):
 
 
 def test_new_kernels_refuse_what_they_cannot_take(dev):
+    """bfloat16 inputs launch the bf16 instances since the bf16 model;
+    float16 and mixed dtypes raise, as do shapes the kernels cannot
+    take."""
     vol = torch.zeros(1, 4, 6, 8, 8, device=dev)
     coords = torch.zeros(1, 4 * 6 * 8, device=dev)
     zi = torch.zeros(1, 4, 48, device=dev)
+    assert plane_mix.plane_mix_resample(vol.bfloat16(), zi, coords,
+                                        coords).dtype == torch.bfloat16
     with pytest.raises(TypeError):
-        plane_mix.plane_mix_resample(vol.bfloat16(), zi, coords, coords)
+        plane_mix.plane_mix_resample(vol.half(), zi, coords, coords)
     with pytest.raises(ValueError):  # C % 4
         plane_mix.plane_mix_resample(vol[..., :6].contiguous(), zi, coords,
                                      coords)
@@ -181,8 +202,14 @@ def test_new_kernels_refuse_what_they_cannot_take(dev):
 
     tk, wk, wv = _attention_inputs(dev)
     valid = torch.ones(3, 2, dtype=torch.bool, device=dev)
-    with pytest.raises(TypeError):
+    assert epipolar_attention.epipolar_attention(
+        tk.bfloat16(), wk.bfloat16(), wv.bfloat16(),
+        valid).dtype == torch.bfloat16
+    with pytest.raises(TypeError):  # keys and values in the key's dtype
         epipolar_attention.epipolar_attention(tk.bfloat16(), wk, wv, valid)
+    with pytest.raises(TypeError):
+        epipolar_attention.epipolar_attention(tk.half(), wk.half(),
+                                              wv.half(), valid)
     with pytest.raises(ValueError, match="C == 16"):
         epipolar_attention.epipolar_attention(
             tk[..., :8], wk[..., :8], wv[..., :8], valid)
@@ -446,3 +473,130 @@ def test_cpu_exported_artifact_launches_the_kernels_on_the_card(dev,
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# ---- the bf16 instances (the bf16 model's kernels) ----------------------
+#
+# A bf16 instance reads bf16 rows, computes the float32 instance's
+# operations and rounds once (csrc/vec16.cuh); the plain bf16 version
+# upcasts, runs the float32 plain version and casts once. Kernels 1-4 are
+# therefore their plain versions bit for bit in bf16 too, and the
+# attention kernel, whose float32 sums run in another order, lies within
+# one bf16 ulp (at the output's scale) of its plain version.
+
+
+def _within_one_bf16_ulp(got, want):
+    """Within one bf16 ulp at the output's scale: the two float32 sums
+    differ in their last bits, and where a value cancels to near zero
+    that is more than the value's own ulp."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    scale = want.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.parametrize("c,w", [(8, 32), (16, 32), (32, 32), (64, 32),
+                                 (8, 33), (24, 31)])
+def test_plane_sweep_bf16_instance_matches_plain(dev, c, w):
+    """Bit for bit, at each channel count the bf16 instance has a
+    compile-time vector count for, an odd width, and a C / 8 it takes
+    through its generic instance."""
+    b, h, d = 2, 24, 16
+    k, poses, dv = _setup(dev, h, w, d, c, b)
+    src = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(0))
+    src = src.to(dev).bfloat16()
+    proj = geometry.camera_projection(k, poses)
+    ref = geometry.camera_projection(k, torch.eye(4, device=dev).expand(
+        b, 4, 4))
+    x, y = warp.plane_sweep_coords(proj, ref, dv, h, w)
+    before = plane_warp.KERNEL.launches_bf16
+    got = plane_warp.plane_sweep_sample(src, x, y)
+    assert plane_warp.KERNEL.launches_bf16 == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, plane_warp.plane_sweep_sample_plain(src, x, y))
+    assert (got == 0).any() and (got != 0).any()
+
+
+@pytest.mark.parametrize("planes_per_map,c", [(1, 8), (6, 32), (2, 24)])
+def test_two_pass_bf16_instance_matches_plain(dev, planes_per_map, c):
+    src, ab, x, y = _two_pass_inputs(dev, planes_per_map, c=c)
+    src = src.bfloat16()
+    before = two_pass.KERNEL.launches_bf16
+    got = two_pass.two_pass_resample(src, ab, x, y, planes_per_map)
+    assert two_pass.KERNEL.launches_bf16 == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, two_pass.two_pass_resample_plain(
+        src, ab, x, y, planes_per_map))
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_frustum_bf16_instances_match_plain(dev, c):
+    """Kernels 2 and 4 in bf16: bit for bit (A and s float32 inside)."""
+    b, h, w, d = 2, 24, 32, 16
+    k, poses, dv = _setup(dev, h, w, d, c, b)
+    vol = torch.randn(b, d, h, w, c, generator=torch.Generator().manual_seed(
+        1)).to(dev).bfloat16()
+    dint = (8.0 - 0.5) / (d - 1)
+    t, grid, x, y, z = warp.frustum_coords(poses, k, dv, h, w)
+    zi = zi_field(t, k, dv, 0.5, dint, grid)
+    counts = (plane_warp_exact_z.KERNEL.launches_bf16,
+              plane_mix.KERNEL.launches_bf16)
+    got = plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z, 0.5, dint)
+    mixed = plane_mix.plane_mix_resample(vol, zi, x, y)
+    assert (plane_warp_exact_z.KERNEL.launches_bf16,
+            plane_mix.KERNEL.launches_bf16) == (counts[0] + 1, counts[1] + 1)
+    assert got.dtype == mixed.dtype == torch.bfloat16
+    assert torch.equal(got, resample_exact_z(vol, zi, x, y, z, 0.5, dint))
+    assert torch.equal(mixed, plane_mix.plane_mix_resample_plain(vol, zi, x,
+                                                                 y))
+
+
+@pytest.mark.parametrize("valid", [
+    [[True, True], [True, True], [True, True]],
+    [[True, False], [False, False], [True, False]]])
+def test_attention_bf16_instance_within_one_ulp(dev, valid):
+    tk, wk, wv = (t.bfloat16() for t in _attention_inputs(dev))
+    valid = torch.tensor(valid, device=dev).t().contiguous().t()
+    before = epipolar_attention.KERNEL.launches_bf16
+    got = epipolar_attention.epipolar_attention(tk, wk, wv, valid)
+    assert epipolar_attention.KERNEL.launches_bf16 == before + 1
+    _within_one_bf16_ulp(got, epipolar_attention.epipolar_attention_plain(
+        tk, wk, wv, valid))
+
+
+def test_bf16_stream_on_the_card_matches_cpu(dev):
+    """A small bf16 ESTM stream through the bf16 instances against the
+    same model on the CPU: within 2x the card's own bf16-against-float32
+    distance on the same frames (bf16 rounds differently on the two
+    devices' convolutions)."""
+    from estdepth_tpu_torch.config import ModelConfig, torch_dtype
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_stream,
+    )
+    from estdepth_tpu_torch.eval.estm import ESTMRunner
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+
+    torch.backends.cudnn.allow_tf32 = False
+    frames = list(synthetic_stream(SyntheticSceneConfig(
+        height=64, width=96, focal=80.0), 6, 0.5, 8.0))
+    outs = {}
+    for dtype, device in (("float32", dev), ("bfloat16", dev),
+                          ("bfloat16", "cpu")):
+        cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                          compute_dtype=dtype)
+        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
+                            device=device)
+        before = plane_warp_exact_z.KERNEL.launches_bf16
+        outs[dtype, str(device)] = [
+            out.cpu() for f in frames if (out := runner.push_frame(
+                f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+        assert runner.memory.keys.dtype == torch_dtype(dtype)
+        if dtype == "bfloat16" and device == dev:
+            assert plane_warp_exact_z.KERNEL.launches_bf16 == before + 3
+
+    def dist(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    own = dist(outs["bfloat16", str(dev)], outs["float32", str(dev)])
+    assert dist(outs["bfloat16", str(dev)], outs["bfloat16", "cpu"]) <= (
+        2 * own)

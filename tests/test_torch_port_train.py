@@ -293,8 +293,9 @@ def test_train_tool_runs_and_resumes(tmp_path, capsys):
     assert "resumed from step 2" in capsys.readouterr().out
     lines = (tmp_path / "scalars.jsonl").read_text().splitlines()
     assert len(lines) == 3
+    assert train_tool.parse_args(argv + ["--bf16"]).bf16
     with pytest.raises(SystemExit):  # flags that are not ported are refused
-        train_tool.parse_args(argv + ["--bf16"])
+        train_tool.parse_args(argv + ["--multihost"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_tool.run(train_tool.parse_args(
