@@ -51,6 +51,11 @@ A kernel's time is device ms per call, from runs of 20 back-to-back calls
 queued while the device is held busy, one CUDA event pair per run; where a
 PyTorch call computes the same memory work (F.grid_sample,
 scaled_dot_product_attention) the kernel and that call are timed in turns.
+The two frustum warps (kernels 2 and 4, one body: csrc/frustum_gather.cuh)
+are held bit for bit in both instances, also at a rolled pose, timed in
+turns with a 5-D F.grid_sample at (x, y, z*) (another function, a
+yardstick of the same 8-tap memory work), with their instances'
+registers and shared memory (tools/kernel_report).
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when no CUDA device is present.
@@ -58,6 +63,7 @@ without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -68,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,12 +96,12 @@ from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.resnet import ResNetEncoder
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
-    build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
-    two_pass,
+    build, epipolar_attention, plane_mix, plane_warp,
+    plane_warp_exact_z, two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools import (
-    eval_estm, eval_joint, export_serving, export_torch,
+    eval_estm, eval_joint, export_serving, export_torch, kernel_report,
     rehearse_release_ckpt, score_offline,
 )
 from estdepth_tpu_torch.tools import train as train_tool
@@ -281,12 +288,28 @@ def _compare(name: str, kernel_out, plain_out) -> dict:
     return {"max_abs_err": err, "max_rel_err": rel}
 
 
+def _timed_with(m: dict, fns: list, library, yardstick) -> None:
+    """Time fns (the kernel first) in turns with `library()` and the
+    yardstick's call where given: m["ms"] (and "f32_ms_same_run" for a
+    second fn), m["library_ms"] (None without one) and m["yardstick"]."""
+    extra = [f for f in (library, yardstick and yardstick[1]) if f]
+    times = list(turns_ms(*fns, *extra) if len(fns) + len(extra) > 1
+                 else [batch_ms(fns[0])])
+    m["ms"] = times.pop(0)
+    if len(fns) > 1:
+        m["f32_ms_same_run"] = times.pop(0)
+    m["library_ms"] = times.pop(0) if library else None
+    if yardstick:
+        m["yardstick"] = {"call": yardstick[0], "ms": times.pop(0)}
+
+
 def _measure(name: str, kern, plain, moved: int, flops: float,
-             library=None, exact: bool = False) -> dict:
+             library=None, exact: bool = False, yardstick=None) -> dict:
     """kern() against plain() under REL_TOL (with `exact`, bit for bit),
-    both timed, kern() in turns with `library()` where one is given, and
-    the bound of `moved` bytes and `flops` float32 operations with the
-    rate and the share of it that the kernel reached."""
+    both timed, kern() in turns with `library()` and the yardstick
+    (label, call) where given, and the bound of `moved` bytes and `flops`
+    float32 operations with the rate and the share of it that the kernel
+    reached."""
     out_k, out_p = kern(), plain()
     m = {"shape": list(out_k.shape), **_compare(name, out_k, out_p)}
     if exact:
@@ -295,10 +318,7 @@ def _measure(name: str, kern, plain, moved: int, flops: float,
                                  f"version at {m['shape']}")
         m["bit_equal"] = True
     del out_k, out_p
-    if library is None:
-        m["ms"], m["library_ms"] = batch_ms(kern), None
-    else:
-        m["ms"], m["library_ms"] = turns_ms(kern, library)
+    _timed_with(m, [kern], library, yardstick)
     m["plain_ms"] = batch_ms(plain, reps=3)
     m["bound_ms"], m["bound_by"] = bound_ms(moved, flops)
     m["tb_per_s"] = moved / m["ms"] * 1e3 / 1e12
@@ -312,7 +332,7 @@ def _bf16_ulp(x: float) -> float:
 
 
 def _bf16_entry(name: str, kern, plain, f32_kern, moved: int,
-                flops: float, library=None) -> dict:
+                flops: float, library=None, yardstick=None) -> dict:
     """A kernel's bf16 instance at the shapes of its row: kern() (bf16
     inputs) against plain() (the plain bf16 version: upcast, the float32
     plain version, one rounding), bit for bit for kernels 1 to 4 and
@@ -322,7 +342,8 @@ def _bf16_entry(name: str, kern, plain, f32_kern, moved: int,
     where one is given, the PyTorch call library() on the bf16 inputs
     (bf16, f32, library, library, f32, bf16 in every round), and the
     bound of its `moved` bytes (the volume's halve, the float32
-    coordinates' do not)."""
+    coordinates' do not); the yardstick (label, call on the bf16 inputs)
+    in the same turns where given."""
     out_k, out_p = kern(), plain()
     if not out_k.dtype == out_p.dtype == torch.bfloat16:
         raise AssertionError(f"{name} bf16: {out_k.dtype}, {out_p.dtype}")
@@ -344,12 +365,7 @@ def _bf16_entry(name: str, kern, plain, f32_kern, moved: int,
                                  f"plain version at {m['shape']}")
         m["bit_equal"] = True
     del out_k, out_p
-    if library is None:
-        m["ms"], m["f32_ms_same_run"] = turns_ms(kern, f32_kern)
-        m["library_ms"] = None
-    else:
-        m["ms"], m["f32_ms_same_run"], m["library_ms"] = turns_ms(
-            kern, f32_kern, library)
+    _timed_with(m, [kern, f32_kern], library, yardstick)
     m["plain_ms"] = batch_ms(plain, reps=3)
     m["bound_ms"], m["bound_by"] = bound_ms(moved, flops)
     m["tb_per_s"] = moved / m["ms"] * 1e3 / 1e12
@@ -459,9 +475,42 @@ def _two_pass_case(gen, poses, k4, dv, src_frames, ref_frames,
     return m
 
 
-def _exact_z_case(gen, poses, k4, dv, neighbour_frames, target_frame) -> dict:
-    """Kernel 2 on one random K/V volume per entry of neighbour_frames,
-    warped into the frustum of target_frame."""
+# The 5-D yardstick of kernels 2 and 4 (timed, used nowhere in the port)
+YARDSTICK_5D = ("F.grid_sample 5-D, trilinear, align_corners=True, on the "
+                "same volume at (x, y, z*): another function (zeros padding "
+                "fades each corner, one z for all four), a yardstick of the "
+                "same 8-tap memory work")
+# a pose that rolls 0.5 rad about the optical axis and moves 1.0 forward:
+# the images of a tile's rows are slanted and magnified, and more voxels
+# leave the image
+ROLL_RAD, ROLL_FORWARD = 0.5, 1.0
+
+
+def _rolled(rel: torch.Tensor) -> torch.Tensor:
+    m = torch.eye(4, device=rel.device)
+    m[0, 0] = m[1, 1] = float(np.cos(ROLL_RAD))
+    m[0, 1], m[1, 0] = -float(np.sin(ROLL_RAD)), float(np.sin(ROLL_RAD))
+    m[2, 3] = ROLL_FORWARD
+    return torch.matmul(m, rel)
+
+
+def _grid_sample_3d(vol, x, y, z, dint):
+    """One F.grid_sample call on the volume [B, D, H, W, C] at (x, y, z*)
+    with z* = (z - DEPTH_MIN) / dint, in the volume's dtype."""
+    b, d, h, w, _ = vol.shape
+    ncdhw = vol.permute(0, 4, 1, 2, 3).contiguous()
+    zs = (z - DEPTH_MIN) / dint
+    grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1,
+                        zs / (d - 1) * 2 - 1], -1)
+    grid = grid.reshape(b, d, h, w, 3).to(vol.dtype)
+    return lambda: F.grid_sample(ncdhw, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+
+def _frustum_inputs(gen, poses, k4, dv, neighbour_frames, target_frame,
+                    rolled: bool = False):
+    """A random volume per neighbour frame and the coordinates and zi
+    field of its warp into target_frame's frustum."""
     dev = poses.device
     h, w, c, d = HEIGHT // 4, WIDTH // 4, CHANNELS, NDEPTHS
     dint = (DEPTH_MAX - DEPTH_MIN) / (NDEPTHS - 1)
@@ -469,29 +518,96 @@ def _exact_z_case(gen, poses, k4, dv, neighbour_frames, target_frame) -> dict:
     vol = torch.randn(b, d, h, w, c, generator=gen).to(dev)
     rel = torch.matmul(poses[neighbour_frames],
                        torch.linalg.inv(poses[[target_frame] * b]))
+    if rolled:
+        rel = _rolled(rel)
     t, grid_px, x, y, z = warp.frustum_coords(rel, k4.expand(b, 3, 3),
                                              dv.expand(b, d), h, w)
     zi = zi_field(t, k4.expand(b, 3, 3), dv.expand(b, d), DEPTH_MIN, dint,
                   grid_px)
+    return vol, zi, x, y, z, dint
 
-    def plain():
-        return resample_exact_z(vol, zi, x, y, z, DEPTH_MIN, dint)
 
-    def kern(v):
-        return plane_warp_exact_z.exact_z_resample(v, zi, x, y, z,
-                                                   DEPTH_MIN, dint)
+def _frustum_kernel(name: str, zi, x, y, z, dint):
+    """(kernel wrapper, plain version) of kernel 2 or 4 on these inputs;
+    both take the volume."""
+    if name == "frustum_warp_exact_z":
+        return (lambda v: plane_warp_exact_z.exact_z_resample(
+                    v, zi, x, y, z, DEPTH_MIN, dint),
+                lambda v: resample_exact_z(v, zi, x, y, z, DEPTH_MIN, dint))
+    return (lambda v: plane_mix.plane_mix_resample(v, zi, x, y),
+            lambda v: plane_mix.plane_mix_resample_plain(v, zi, x, y))
 
-    flops = vol.numel() * 32 + vol.numel() // c * 30
-    m = _measure("frustum_warp_exact_z", lambda: kern(vol), plain,
-                 nbytes(vol, zi, x, y, z) + nbytes(vol), flops)
-    m["valid_share"] = (plain().abs().amax(-1) > 0).float().mean().item()
+
+def _valid_share(out: torch.Tensor) -> float:
+    """Share of the voxels of `out` [..., C] with a non-zero channel."""
+    return (out.abs().amax(-1) > 0).float().mean().item()
+
+
+def _frustum_case(name: str, gen, poses, k4, dv, neighbour_frames,
+                  target_frame, flops_per_value: int,
+                  flops_per_voxel: int) -> tuple[dict, tuple]:
+    """Kernel 2 or 4 on one random volume per neighbour frame warped into
+    target_frame's frustum, in float32 and bf16: bit for bit against the
+    plain version, timed in turns with the 5-D yardstick, and the same
+    bit-for-bit check at the rolled pose. Returns the entry
+    and the outputs of both instances."""
+    vol, zi, x, y, z, dint = _frustum_inputs(gen, poses, k4, dv,
+                                             neighbour_frames, target_frame)
+    kern, plain = _frustum_kernel(name, zi, x, y, z, dint)
+    moved = nbytes(vol, zi, x, y) + nbytes(vol)
+    if name == "frustum_warp_exact_z":
+        moved += nbytes(z)
+    flops = vol.numel() * flops_per_value + vol.numel() // CHANNELS * (
+        flops_per_voxel)
+    m = _measure(name, lambda: kern(vol), lambda: plain(vol), moved, flops,
+                 exact=True,
+                 yardstick=(YARDSTICK_5D,
+                            _grid_sample_3d(vol, x, y, z, dint)))
+    m["valid_share"] = _valid_share(plain(vol))
     vol16 = vol.bfloat16()
     m["bf16"] = _bf16_entry(
-        "frustum_warp_exact_z", lambda: kern(vol16),
-        lambda: resample_exact_z(vol16, zi, x, y, z, DEPTH_MIN, dint),
-        lambda: kern(vol), nbytes(vol16, zi, x, y, z) + nbytes(vol16),
-        flops)
-    return m
+        name, lambda: kern(vol16), lambda: plain(vol16), lambda: kern(vol),
+        moved - nbytes(vol16) * 2, flops,
+        yardstick=(YARDSTICK_5D, _grid_sample_3d(vol16, x, y, z, dint)))
+    outs = kern(vol), kern(vol16)
+    del vol16
+    # the rolled pose
+    vol, zi, x, y, z, dint = _frustum_inputs(
+        gen, poses, k4, dv, neighbour_frames, target_frame, rolled=True)
+    kern, plain = _frustum_kernel(name, zi, x, y, z, dint)
+    rolled = {"roll_rad": ROLL_RAD, "forward": ROLL_FORWARD}
+    for key, v in (("f32", vol), ("bf16", vol.bfloat16())):
+        out_p = plain(v)
+        if not torch.equal(kern(v), out_p):
+            raise AssertionError(f"{name} {key}: kernel differs from its "
+                                 f"plain version at the rolled pose")
+        rolled[key] = {"bit_equal": True, "valid_share": _valid_share(out_p)}
+    m["rolled"] = rolled
+    return m, outs
+
+
+def _kernel_reports(names: list[str]) -> dict:
+    """tools/kernel_report's rows of csrc/<name>.cu for each name (one
+    nvcc each, all at once)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_report_") as tmp:
+        with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+            rows = pool.map(
+                lambda n: kernel_report.report(n, Path(tmp)), names)
+            return dict(zip(names, rows))
+
+
+def _instance_report(rows: list[dict], vol: torch.Tensor) -> dict:
+    """Registers, spills and shared memory of the instance that runs on
+    `vol` (its element type and vectors per voxel, 32-bit offsets)."""
+    c = vol.shape[-1]
+    elem = "float" if vol.dtype == torch.float32 else "__nv_bfloat16"
+    cv = c * vol.dtype.itemsize // build.VECTOR_BYTES
+    row = next(r for r in rows if f"<{elem}," in r["kernel"]
+               and f", {cv}, int>(" in r["kernel"])
+    return {"kernel": row["kernel"], "registers": row["registers"],
+            "spill_bytes": row.get("spill_bytes", 0),
+            "smem_bytes": row.get("smem_bytes", 0),
+            "instructions": row.get("instructions")}
 
 
 def phase_kernels() -> list[dict]:
@@ -519,12 +635,15 @@ def phase_kernels() -> list[dict]:
     # kernel 2. ESTM: target frame 2 against memory frames 1 and 0.
     # Joint: target frame 1 against in-window targets 0 and 2 and the
     # memory frame 3 (B = 3), the poses of kernel 4's row.
+    estm, _ = _frustum_case("frustum_warp_exact_z", gen, poses, k4, dv,
+                            [1, 0], 2, 32, 30)
+    joint, _ = _frustum_case("frustum_warp_exact_z", gen, poses, k4, dv,
+                             [0, 2, 3], 1, 32, 30)
     rows.append({
         "name": "frustum_warp_exact_z", "route": "cuda",
         "source": "estdepth_tpu_torch/csrc/frustum_warp_exact_z.cu",
         "replaces": "estdepth_tpu/ops/pallas/plane_warp_exact_z.py:281",
-        **_exact_z_case(gen, poses, k4, dv, [1, 0], 2),
-        "joint": _exact_z_case(gen, poses, k4, dv, [0, 2, 3], 1)})
+        **estm, "joint": joint})
 
     # kernel 3. Its row's own numbers at the training window's plane sweep
     # (6 maps, 64 planes each), "estm" at the ESTM step's (2 maps), and
@@ -540,41 +659,20 @@ def phase_kernels() -> list[dict]:
     # kernel 4, Joint window: target frame 1 against in-window targets 0
     # and 2 and the memory frame 3, keys and values concatenated
     n = JOINT_NEIGHBOURS
-    vol = torch.randn(n, d, h, w, c, generator=gen).to(dev)
-    rel = torch.matmul(poses[[0, 2, 3]], torch.linalg.inv(poses[[1, 1, 1]]))
-    t, grid_px, x, y, _ = warp.frustum_coords(rel, k4.expand(n, 3, 3),
-                                             dv.expand(n, d), h, w)
-    zi = zi_field(t, k4.expand(n, 3, 3), dv.expand(n, d), DEPTH_MIN, dint,
-                  grid_px)
-
-    def kern():
-        return plane_mix.plane_mix_resample(vol, zi, x, y)
-
-    def plain():
-        return plane_mix.plane_mix_resample_plain(vol, zi, x, y)
-
-    warped, out_p = kern(), plain()
-    row = {"name": "frustum_warp_plane_mix", "route": "cuda",
-           "source": "estdepth_tpu_torch/csrc/frustum_warp_plane_mix.cu",
-           "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:533",
-           **_compare("frustum_warp_plane_mix", warped, out_p)}
-    row["ms"] = batch_ms(kern)
-    row["plain_ms"] = batch_ms(plain, reps=3)
-    row["library_ms"] = None
-    voxels = warped.numel() // c
-    flops = warped.numel() * 21 + voxels * 40
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(vol, zi, x, y, warped), flops)
-    row["valid_share"] = (out_p.abs().amax(-1) > 0).float().mean().item()
-    vol16 = vol.bfloat16()
-    warped16 = plane_mix.plane_mix_resample(vol16, zi, x, y)
-    row["bf16"] = _bf16_entry(
-        "frustum_warp_plane_mix",
-        lambda: plane_mix.plane_mix_resample(vol16, zi, x, y),
-        lambda: plane_mix.plane_mix_resample_plain(vol16, zi, x, y), kern,
-        nbytes(vol16, zi, x, y, warped16), flops)
-    rows.append(row)
-    del vol, vol16, out_p
+    row, (warped, warped16) = _frustum_case(
+        "frustum_warp_plane_mix", gen, poses, k4, dv, [0, 2, 3], 1, 21, 40)
+    rows.append({"name": "frustum_warp_plane_mix", "route": "cuda",
+                 "source": "estdepth_tpu_torch/csrc/frustum_warp_plane_mix.cu",
+                 "replaces": "estdepth_tpu/ops/pallas/plane_warp.py:533",
+                 **row})
+    # registers, spills and shared memory of the instances above
+    reports = _kernel_reports(["frustum_warp_exact_z",
+                               "frustum_warp_plane_mix"])
+    for r in (r for r in rows if r["name"] in reports):
+        for entry, vol_dtype in ((r, torch.float32),
+                                 (r["bf16"], torch.bfloat16)):
+            vol = torch.empty(1, d, h, w, c, dtype=vol_dtype, device="meta")
+            entry["report"] = _instance_report(reports[r["name"]], vol)
 
     # kernel 5, Joint window: the target's key against the K and V halves
     # of the volume kernel 4 just wrote, read in place as the fusion does

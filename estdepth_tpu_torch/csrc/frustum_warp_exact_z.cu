@@ -14,6 +14,8 @@
 //     A(c)  = V[b, z0, c, :] - z0(c) * s(c)
 //   out = bilinear(A) + clip(zi*, 0, Z-1) * bilinear(s)
 // and zero where (x, y) leaves the image or zi* leaves [-1e-3, Z-1+1e-3].
+// The two windows differ on purpose: the z-window is tested on the voxel's
+// zi*, and a corner's z-cell is clamped into range, never zeroed.
 // zi [B, D, H*W] is the per-(target plane, source pixel) index field the
 // wrapper computes in PyTorch (ops/warp_exact_z.zi_field).
 // inv_depth_interval is the f32 reciprocal 1 / depth_interval: PyTorch
@@ -24,155 +26,87 @@
 // The TPU version writes A and s for every (plane, source pixel) to HBM
 // (as bf16 pairs in its packed mode) and resamples them in two passes,
 // because Mosaic can neither gather across lanes nor fuse the stages.
-// Here one thread per (voxel, 16-byte vector) gathers its corners' taps
-// directly: A and s never reach device memory, so there is nothing to pack,
-// and the sample is taken at the exact (x, y).
+// Here A and s never reach device memory: the body (csrc/frustum_gather.cuh)
+// gives each block of 16 x 8 voxels of one plane, a lane per voxel, and
+// every vector of a voxel gathers its four corners' taps, derives their A
+// and s and blends them at the exact (x, y). A = v0 - z0 * s carries
+// z0 * s at up to Z-1 times the volume's scale, so A and s are float32 in
+// both instances, as the TPU function keeps them for a bf16 volume, and no
+// operation is contracted into an FMA (a contracted A moves the output by
+// ~2e-5 of its scale).
 //
 // Bound on the card: bytes. At the flagship step (V [2, 64, 64, 80, 32]
 // f32) the kernel must read the 84 MB volume once and write the 84 MB
 // output, plus 7.9 MB of x/y/z and 2.6 MB of zi: ~178 MB, about 53 us at
-// 3.35 TB/s. Each voxel reads 8 float4 taps (two planes at four corners);
-// neighbouring voxels share corners and planes, so the repeated reads are
-// meant to hit L1/L2 rather than device memory. Out-of-window voxels skip
-// all gathers.
+// 3.35 TB/s. In bfloat16 the volume and the output halve (42 MB each) and
+// the 10.5 MB of x/y/z and zi do not: ~94.4 MB, about 28 us. Out-of-window
+// voxels read no taps.
 //
 // Two instances of one body: frustum_warp_exact_z_f32 and
-// frustum_warp_exact_z_bf16. A thread owns one 16-byte vector of a voxel:
-// 4 float32 or 8 bfloat16 channels (csrc/vec16.cuh). A and s are float32
-// in both, as the TPU function keeps them for a bf16 volume: A carries
-// z0 * s at up to Z-1 times the volume's scale, which a bf16 A would
-// amplify. A bfloat16 result is rounded once. In bfloat16 the volume and
-// the output halve (42 MB each at the flagship step) and the 10.5 MB of
-// x/y/z and zi do not: about 28 us at 3.35 TB/s.
+// frustum_warp_exact_z_bf16 (csrc/vec16.cuh: a 16-byte vector holds 4
+// float32 or 8 bfloat16 channels; a bfloat16 result is rounded once).
 
-#include "vec16.cuh"
+#include "frustum_gather.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-3f;
+struct ExactZ {
+  static constexpr int kValues = 2;  // A and s
+  static constexpr bool kUsesZc = true;
+  const float* zs;
+  float depth_min, inv_depth_interval;
 
-__device__ __forceinline__ void corner(float q, int size, int& i0, int& i1,
-                                       float& frac) {
-  const float qc = fminf(fmaxf(q, 0.0f), static_cast<float>(size - 1));
-  const float base = fminf(fmaxf(floorf(qc), 0.0f),
-                           fmaxf(static_cast<float>(size - 2), 0.0f));
-  i0 = static_cast<int>(base);
-  i1 = min(i0 + 1, size - 1);
-  frac = qc - base;
-}
+  // The voxel's z-window, and its clipped z index zc.
+  __device__ __forceinline__ bool voxel(long long v, int Z, float& zc) const {
+    const float zstar =
+        __fmul_rn(__fsub_rn(__ldg(zs + v), depth_min), inv_depth_interval);
+    zc = fminf(fmaxf(zstar, 0.0f), static_cast<float>(Z - 1));
+    return zstar >= -frustum::kEps &&
+           zstar <= static_cast<float>(Z - 1) + frustum::kEps;
+  }
 
-// a + t * (b - a) with every operation rounded on its own: the explicit
-// _rn intrinsics keep nvcc from contracting into an FMA, so the result is
-// the plain PyTorch version's bit for bit.
-__device__ __forceinline__ float lerp(float a, float b, float t) {
-  return __fadd_rn(a, __fmul_rn(t, __fsub_rn(b, a)));
-}
+  // a corner's z-cell, clamped into range (never zeroed)
+  __device__ __forceinline__ float z0(float q, int Z) const {
+    return fminf(
+        fmaxf(floorf(fminf(fmaxf(q, 0.0f), static_cast<float>(Z - 1))), 0.0f),
+        fmaxf(static_cast<float>(Z - 2), 0.0f));
+  }
 
-// Tap A and slope s of one corner pixel, one vector of channels: the
-// corner's z-cell from its own plane index, clamped into range (never
-// zeroed). No FMA contraction here either: A = v0 - z0 * s carries z0 * s
-// at up to Z-1 times the volume's scale, and a contracted A moves the
-// output by ~2e-5 of its scale.
-template <typename T>
-__device__ __forceinline__ void tap_slope(
-    const typename vec16::Vec<T>::Raw* __restrict__ vol_b,
-    const float* __restrict__ zi_map, int pix, int Z, long long hw, int CV,
-    float (&a)[vec16::Vec<T>::kLanes], float (&s)[vec16::Vec<T>::kLanes]) {
-  using V = vec16::Vec<T>;
-  const float zq = __ldg(zi_map + pix);
-  const float z0 =
-      fminf(fmaxf(floorf(fminf(fmaxf(zq, 0.0f), static_cast<float>(Z - 1))),
-                  0.0f),
-            fmaxf(static_cast<float>(Z - 2), 0.0f));
-  const long long z0i = static_cast<long long>(z0);
-  float v0[V::kLanes], v1[V::kLanes];
-  V::unpack(__ldg(vol_b + (z0i * hw + pix) * CV), v0);
-  V::unpack(__ldg(vol_b + ((z0i + 1) * hw + pix) * CV), v1);
+  __device__ __forceinline__ bool loads(float) const { return true; }
+
+  template <int L>
+  __device__ __forceinline__ void values(const float (&v0)[L],
+                                         const float (&v1)[L], float,
+                                         float z0, float (&out)[2][L]) const {
 #pragma unroll
-  for (int l = 0; l < V::kLanes; ++l) {
-    s[l] = __fsub_rn(v1[l], v0[l]);
-    a[l] = __fsub_rn(v0[l], __fmul_rn(z0, s[l]));
+    for (int l = 0; l < L; ++l) {
+      out[1][l] = __fsub_rn(v1[l], v0[l]);
+      out[0][l] = __fsub_rn(v0[l], __fmul_rn(z0, out[1][l]));
+    }
   }
-}
 
-template <typename T>
-__global__ void frustum_warp_exact_z_kernel(
-    const typename vec16::Vec<T>::Raw* __restrict__ vol,
-    const float* __restrict__ zi, const float* __restrict__ xs,
-    const float* __restrict__ ys, const float* __restrict__ zs,
-    typename vec16::Vec<T>::Raw* __restrict__ out, int Z, int H, int W,
-    int CV, float depth_min, float inv_depth_interval, long long total) {
-  using V = vec16::Vec<T>;
-  constexpr int L = V::kLanes;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int cv = static_cast<int>(t % CV);
-  const long long v = t / CV;  // voxel index over [B, D, H, W], D == Z
-  const long long hw = static_cast<long long>(H) * W;
-  const long long bd = v / hw;  // b * D + d
-  const long long b = bd / Z;
-  const float x = __ldg(xs + v);
-  const float y = __ldg(ys + v);
-  const float zstar = (__ldg(zs + v) - depth_min) * inv_depth_interval;
-  const bool valid = x >= 0.0f && x <= static_cast<float>(W - 1) &&
-                     y >= 0.0f && y <= static_cast<float>(H - 1) &&
-                     zstar >= -kEps &&
-                     zstar <= static_cast<float>(Z - 1) + kEps;
-  if (!valid) {
-    out[t] = typename V::Raw{};
-    return;
+  // bilinear(A) + zc * bilinear(s)
+  __device__ __forceinline__ float finish(const float (&t)[2],
+                                          float zc) const {
+    return __fadd_rn(t[0], __fmul_rn(zc, t[1]));
   }
-  int x0, x1, y0, y1;
-  float wx, wy;
-  corner(x, W, x0, x1, wx);
-  corner(y, H, y0, y1, wy);
-  const typename V::Raw* vol_b = vol + b * Z * hw * CV + cv;
-  const float* zi_map = zi + bd * hw;
-  float a00[L], s00[L], a01[L], s01[L], a10[L], s10[L], a11[L], s11[L];
-  tap_slope<T>(vol_b, zi_map, y0 * W + x0, Z, hw, CV, a00, s00);
-  tap_slope<T>(vol_b, zi_map, y0 * W + x1, Z, hw, CV, a01, s01);
-  tap_slope<T>(vol_b, zi_map, y1 * W + x0, Z, hw, CV, a10, s10);
-  tap_slope<T>(vol_b, zi_map, y1 * W + x1, Z, hw, CV, a11, s11);
-  const float zc = fminf(fmaxf(zstar, 0.0f), static_cast<float>(Z - 1));
-  float o[L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const float at = lerp(lerp(a00[l], a01[l], wx), lerp(a10[l], a11[l], wx),
-                          wy);
-    const float st = lerp(lerp(s00[l], s01[l], wx), lerp(s10[l], s11[l], wx),
-                          wy);
-    o[l] = __fadd_rn(at, __fmul_rn(zc, st));
-  }
-  out[t] = V::pack(o);
-}
+};
 
 template <typename T>
 int launch(const void* vol, const void* zi, const void* x, const void* y,
            const void* z, void* out, int B, int D, int H, int W, int C,
            float depth_min, float inv_depth_interval, void* stream) {
-  using Raw = typename vec16::Vec<T>::Raw;
-  const int cv = C / vec16::Vec<T>::kLanes;
-  const long long total = static_cast<long long>(B) * D * H * W * cv;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  frustum_warp_exact_z_kernel<T>
-      <<<static_cast<unsigned int>(blocks), threads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const Raw*>(vol), static_cast<const float*>(zi),
-          static_cast<const float*>(x), static_cast<const float*>(y),
-          static_cast<const float*>(z), static_cast<Raw*>(out), D, H, W, cv,
-          depth_min, inv_depth_interval, total);
-  return static_cast<int>(cudaGetLastError());
+  const ExactZ op{static_cast<const float*>(z), depth_min,
+                  inv_depth_interval};
+  return frustum::launch<T>(vol, zi, x, y, out, B, D, H, W, C, op, stream);
 }
 
 }  // namespace
 
 // vol [B, D, H, W, C], out like vol; zi [B, D, H*W] and x/y/z [B, D*H*W]
 // float32; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), D >= 2
-// (checked by the Python wrapper). Launches on `stream` and returns
-// cudaGetLastError().
+// (checked by the Python wrapper). Launches on `stream` and returns the
+// launch's CUDA error (cudaGetLastError()).
 extern "C" int frustum_warp_exact_z_f32(const void* vol, const void* zi,
                                         const void* x, const void* y,
                                         const void* z, void* out, int B,

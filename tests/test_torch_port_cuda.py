@@ -6,10 +6,9 @@ the fixture, not at import). On a machine with the card:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 
 The four warp kernels repeat their plain version's arithmetic operation
-by operation (no FMA contraction): the plane sweep and the two-pass
-resample are held to it bit for bit (`torch.equal`), the frustum warps to
-1e-6 of the output's scale; chip_smoke.py holds all four to 1e-5 at the
-flagship shapes, and the first two bit for bit.
+by operation (no FMA contraction) and are held to it bit for bit
+(`torch.equal`), in both instances; chip_smoke.py holds them so at the
+flagship shapes, and the frustum warps also at a rolled pose.
 Their gradients on the card are autograd of the plain versions, held to
 autograd of the plain version called directly at 3e-5 of the gradient's
 scale (both scatter-add with float atomics, in an order that changes from
@@ -47,11 +46,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _pose(tx, ty, tz, yaw, pitch):
+def _pose(tx, ty, tz, yaw, pitch, roll=0.0):
     cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
     m = np.eye(4, dtype=np.float32)
     m[:3, :3] = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
-                 @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+                 @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+                 @ np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]]))
     m[:3, 3] = [tx, ty, tz]
     return torch.from_numpy(m)
 
@@ -63,12 +64,6 @@ def _setup(dev, h=24, w=32, d=16, c=8, b=2):
                          _pose(-0.04, 0.03, -0.05, -0.015, 0.02)]).to(dev)
     dv = torch.linspace(0.5, 8.0, d, device=dev)[None].expand(b, d)
     return k, poses, dv
-
-
-def _close(got, want):
-    scale = want.abs().max().item()
-    assert scale > 0
-    assert (got - want).abs().max().item() <= 1e-6 * scale
 
 
 @pytest.mark.parametrize("c,w", [(4, 32), (8, 32), (32, 32), (64, 32),
@@ -91,18 +86,40 @@ def test_plane_sweep_kernel_matches_plain(dev, c, w):
     assert (got == 0).any() and (got != 0).any()
 
 
-def test_exact_z_kernel_matches_plain(dev):
-    b, h, w, d, c = 2, 24, 32, 16, 8
+# channel counts of the frustum warps' instances (C / 4 = 1, 2, 8, 16 and
+# the generic 3), an odd width, and a width that fills the tiles
+FRUSTUM_SHAPES = [(4, 32), (8, 32), (12, 31), (32, 32), (64, 32), (8, 33)]
+
+
+def _frustum_inputs(dev, c, w, dtype=torch.float32, rolled=False, seed=1):
+    """A volume and the frustum coordinates and zi field of _setup's poses
+    (or, `rolled`, poses rolled 0.4 rad about the optical axis and moved
+    1.0 forward: slanted rows, voxels leaving the image, and some zi carry
+    the -2 sentinel)."""
+    b, h, d = 2, 24, 16
     k, poses, dv = _setup(dev, h, w, d, c, b)
-    vol = torch.randn(b, d, h, w, c,
-                      generator=torch.Generator().manual_seed(1)).to(dev)
+    if rolled:
+        poses = torch.stack([_pose(0.05, -0.02, 1.0, 0.02, -0.01, 0.4),
+                             _pose(-0.04, 0.03, 1.0, -0.015, 0.02, -0.4)]
+                            ).to(dev)
+    vol = torch.randn(b, d, h, w, c, generator=torch.Generator().manual_seed(
+        seed)).to(dev).to(dtype)
     dint = (8.0 - 0.5) / (d - 1)
     t, grid, x, y, z = warp.frustum_coords(poses, k, dv, h, w)
     zi = zi_field(t, k, dv, 0.5, dint, grid)
+    return vol, zi, x, y, z, dint
+
+
+@pytest.mark.parametrize("c,w", FRUSTUM_SHAPES)
+def test_exact_z_kernel_matches_plain(dev, c, w):
+    """Bit for bit, at each channel count the kernel has an instance for,
+    a C / 4 it takes through its generic instance and an odd width."""
+    vol, zi, x, y, z, dint = _frustum_inputs(dev, c, w)
     before = plane_warp_exact_z.KERNEL.launches
     got = plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z, 0.5, dint)
     assert plane_warp_exact_z.KERNEL.launches == before + 1
-    _close(got, resample_exact_z(vol, zi, x, y, z, 0.5, dint))
+    assert torch.equal(got, resample_exact_z(vol, zi, x, y, z, 0.5, dint))
+    assert (got == 0).any() and (got != 0).any()
 
 
 def test_kernels_refuse_bf16_and_bad_shapes(dev):
@@ -136,23 +153,38 @@ def test_kernels_refuse_bf16_and_bad_shapes(dev):
                                       coords[:, :-1])
 
 
-def test_plane_mix_kernel_matches_plain(dev):
-    b, h, w, d, c = 2, 24, 32, 16, 8
-    k, poses, dv = _setup(dev, h, w, d, c, b)
-    vol = torch.randn(b, d, h, w, c,
-                      generator=torch.Generator().manual_seed(2)).to(dev)
-    dint = (8.0 - 0.5) / (d - 1)
-    t, grid, x, y, _ = warp.frustum_coords(poses, k, dv, h, w)
-    zi = zi_field(t, k, dv, 0.5, dint, grid)
+@pytest.mark.parametrize("c,w", FRUSTUM_SHAPES)
+def test_plane_mix_kernel_matches_plain(dev, c, w):
+    """Bit for bit, at the shapes of the exact-z kernel's test."""
+    vol, zi, x, y, _, dint = _frustum_inputs(dev, c, w, seed=2)
     before = plane_mix.KERNEL.launches
     got = plane_mix.plane_mix_resample(vol, zi, x, y)
     assert plane_mix.KERNEL.launches == before + 1
-    _close(got, plane_mix.plane_mix_resample_plain(vol, zi, x, y))
+    assert torch.equal(got, plane_mix.plane_mix_resample_plain(vol, zi, x, y))
     assert (got == 0).any() and (got != 0).any()
     # the same through the public warp
-    _close(warp.frustum_warp(vol, poses, k, dv, 0.5, dint, mode="plane_mix"),
-           got)
+    k, poses, dv = _setup(dev, 24, w, 16, c, 2)
+    assert torch.equal(
+        warp.frustum_warp(vol, poses, k, dv, 0.5, dint, mode="plane_mix"),
+        got)
     assert plane_mix.KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 32),
+                                     (torch.bfloat16, 64)])
+def test_frustum_kernels_match_plain_at_a_rolled_pose(dev, dtype, c):
+    """The rolled pose, the -2 sentinel among the zi: both kernels bit for
+    bit, each launched once."""
+    vol, zi, x, y, z, dint = _frustum_inputs(dev, c, 32, dtype, rolled=True)
+    assert (zi == -2).any()
+    before = (plane_warp_exact_z.KERNEL.launches, plane_mix.KERNEL.launches)
+    got = plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z, 0.5, dint)
+    mixed = plane_mix.plane_mix_resample(vol, zi, x, y)
+    assert (plane_warp_exact_z.KERNEL.launches,
+            plane_mix.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, resample_exact_z(vol, zi, x, y, z, 0.5, dint))
+    assert torch.equal(mixed,
+                       plane_mix.plane_mix_resample_plain(vol, zi, x, y))
 
 
 def _attention_inputs(dev, b=2, n=3, d=4, h=6, w=8, c=16):
@@ -529,16 +561,13 @@ def test_two_pass_bf16_instance_matches_plain(dev, planes_per_map, c):
         src, ab, x, y, planes_per_map))
 
 
-@pytest.mark.parametrize("c", [8, 32])
-def test_frustum_bf16_instances_match_plain(dev, c):
-    """Kernels 2 and 4 in bf16: bit for bit (A and s float32 inside)."""
-    b, h, w, d = 2, 24, 32, 16
-    k, poses, dv = _setup(dev, h, w, d, c, b)
-    vol = torch.randn(b, d, h, w, c, generator=torch.Generator().manual_seed(
-        1)).to(dev).bfloat16()
-    dint = (8.0 - 0.5) / (d - 1)
-    t, grid, x, y, z = warp.frustum_coords(poses, k, dv, h, w)
-    zi = zi_field(t, k, dv, 0.5, dint, grid)
+@pytest.mark.parametrize("c,w", [(8, 32), (32, 32), (64, 32), (16, 33),
+                                 (24, 31)])
+def test_frustum_bf16_instances_match_plain(dev, c, w):
+    """Kernels 2 and 4 in bf16: bit for bit (A and s float32 inside), at
+    the multiples of 8 of the float32 tests, odd widths and a C / 8 the
+    generic instance takes."""
+    vol, zi, x, y, z, dint = _frustum_inputs(dev, c, w, torch.bfloat16)
     counts = (plane_warp_exact_z.KERNEL.launches_bf16,
               plane_mix.KERNEL.launches_bf16)
     got = plane_warp_exact_z.exact_z_resample(vol, zi, x, y, z, 0.5, dint)
