@@ -43,9 +43,18 @@ float32 instance and, where the row has one, the library call on the
 bf16 inputs; a small bf16 stream on the card is held against the CPU;
 and the ESTM stream, both Joint chains, the training step and a bf16
 stream artifact run at full width through the bf16 instances, each in
-turns with the float32 model. Every phase prints one line; any failure
-raises and exits non-zero. The last line is {"ok": true, "device":
-{...}}.
+turns with the float32 model. Data-parallel training (phase
+`train_ddp`, at the training step's full width): tools/train.py
+--multihost on one NCCL rank in turns with the one-device run, float32
+and bf16 (losses, BatchNorm statistics, kernel launches per step, ms per
+step, peak memory), then two gloo ranks on the one card, each a process
+of this script (`--ddp-rank R --ddp-port P --ddp-out DIR`), driving
+parallel.mesh and the trainer directly: equal losses and parameters
+across the ranks, agreement with the one-process step on both ranks'
+windows, rank 0's checkpoint loaded into a one-device model, and the
+share of each step with a collective in flight. Every phase prints one
+line; any failure raises and exits non-zero. The last line is {"ok":
+true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
 queued while the device is held busy, one CUDA event pair per run; where a
@@ -63,12 +72,14 @@ without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import functools
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -87,12 +98,14 @@ from estdepth_tpu_torch.config import (
 from estdepth_tpu_torch.data import io_utils, native
 from estdepth_tpu_torch.data.eval_stream import StreamEvalDataset
 from estdepth_tpu_torch.data.eval_windows import WindowEvalDataset
+from estdepth_tpu_torch.data.pipeline import TrainLoader
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, intrinsics, pose, render, synthetic_stream,
     write_scannet_scene, write_scannet_train_scene,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+from estdepth_tpu_torch.models.layers import convert_sync_batchnorm
 from estdepth_tpu_torch.models.resnet import ResNetEncoder
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
@@ -100,6 +113,10 @@ from estdepth_tpu_torch.ops.cuda import (
     plane_warp_exact_z, two_pass,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
+from estdepth_tpu_torch.parallel import mesh as parallel_mesh
+from estdepth_tpu_torch.parallel.mesh import (
+    create_mesh, init_distributed, shutdown,
+)
 from estdepth_tpu_torch.tools import (
     eval_estm, eval_joint, export_serving, export_torch, kernel_report,
     rehearse_release_ckpt, score_offline,
@@ -107,8 +124,12 @@ from estdepth_tpu_torch.tools import (
 from estdepth_tpu_torch.tools import train as train_tool
 from estdepth_tpu_torch.tools.eval_estm import run_synthetic
 from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
-from estdepth_tpu_torch.train.trainer import make_optimizer, make_train_step
+from estdepth_tpu_torch.train import trainer
+from estdepth_tpu_torch.train.trainer import (
+    TrainState, make_optimizer, make_train_step,
+)
 from estdepth_tpu_torch.utils import viz
+from estdepth_tpu_torch.utils.checkpoint import CheckpointManager
 from estdepth_tpu_torch.utils.convert import load_reference_checkpoint
 
 # Flagship shapes: 256x320 frames, cost volume 64x80, D = 64 planes, 32
@@ -157,6 +178,9 @@ WINDOW_SWEEPS = ([0, 2, 1, 3, 2, 4], [1, 1, 2, 2, 3, 3])  # (src, ref) frames
 # frames (Joint: windows) of the export tool's oracle check
 SERVING_SCALES, VERIFY_FRAMES, VERIFY_WINDOWS = (0, 2), 8, 2
 RELEASE_VERIFY_FRAMES = 4
+# data-parallel training (phase_train_ddp): steps per run, and each rank
+# process's time limit in seconds (case (b))
+DDP_STEPS, DDP_RANK_TIMEOUT = 3, 400
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -2104,6 +2128,332 @@ def phase_train_dataset(rows: list[dict], train_ms: float) -> None:
             row["name"]]
 
 
+def _ddp_flags(logdir: str, dtype: str) -> list[str]:
+    """tools/train.py at the flagship width: 5-frame windows, batch 1 per
+    process, EST on, seed 0, DDP_STEPS steps."""
+    return ["--synthetic", "--steps", str(DDP_STEPS), "--height",
+            str(HEIGHT), "--width", str(WIDTH), "--ndepths", str(NDEPTHS),
+            "--depth-min", str(DEPTH_MIN), "--depth-max", str(DEPTH_MAX),
+            "--resnet", "50", "--n-frames", str(TRAIN_FRAMES),
+            "--batch-per-device", "1", "--summary-freq", "1", "--seed", "0",
+            "--num-workers", "2", "--ckpt-steps", str(10 * DDP_STEPS),
+            "--image-freq", str(10 * DDP_STEPS), "--logdir", logdir,
+            *(["--bf16"] if dtype == "bfloat16" else [])]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _bn_stats(model) -> dict:
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _trajectory(path: str, losses, want_losses, stats, want_stats,
+                f32_stats=None) -> dict:
+    """Losses at rtol 3e-3 and BN statistics at rtol 5e-3 (atol 5e-4), the
+    PARITY.md trajectory tolerances. In bf16 (`f32_stats`: the float32
+    run's statistics from the same start) the statistics are held by the
+    port's bf16 rule instead, as reference_bf16: within 2x the bf16 run's
+    own largest distance from float32. Returns the largest errors."""
+    np.testing.assert_allclose(losses, want_losses, rtol=3e-3,
+                               err_msg=f"{path}: losses")
+    worst, outside = 0.0, 0
+    for k, want in want_stats.items():
+        if f32_stats is None:
+            np.testing.assert_allclose(stats[k].numpy(), want.numpy(),
+                                       rtol=5e-3, atol=5e-4,
+                                       err_msg=f"{path}: {k}")
+        outside += int((~torch.isclose(stats[k], want, rtol=5e-3,
+                                       atol=5e-4)).sum())
+        worst = max(worst, float((stats[k] - want).abs().max()))
+    errs = {"loss_max_rel_err": float(np.max(np.abs(
+        np.subtract(losses, want_losses)) / np.abs(want_losses))),
+        "bn_max_abs_err": worst, "bn_stats": len(want_stats),
+        "bn_elements_outside_5e-3": outside}
+    if f32_stats is not None:
+        own = max(float((want_stats[k] - v).abs().max())
+                  for k, v in f32_stats.items())
+        errs["bn_bf16_to_f32_max_abs"] = own
+        if not worst <= 2 * own:
+            raise AssertionError(f"{path}: BN statistics {worst} from the "
+                                 f"reference run, 2x bf16's own {own}")
+    return errs
+
+
+def _ddp_one_rank(rows: list[dict], dtype: str, f32_stats=None) -> dict:
+    """Case (a): tools/train.py --multihost on one NCCL rank (the data mesh
+    of one process: DDP, synced BatchNorm, the scalars' all-reduce) in
+    turns with the one-device run of the same tool (one, ddp, ddp, one),
+    the same weights and windows. Every kernel's count is set to 0 just
+    before each run and read just after. Returns the one-device run's BN
+    statistics; bf16 takes the float32 ones as `f32_stats`."""
+    runs = {"one": [], "ddp": []}
+    for kind in ("one", "ddp", "ddp", "one"):
+        extra = [] if kind == "one" else [
+            "--multihost", "--coordinator", f"localhost:{_free_port()}",
+            "--num-processes", "1", "--process-id", "0"]
+        with tempfile.TemporaryDirectory() as logdir:
+            args = train_tool.parse_args(_ddp_flags(logdir, dtype) + extra)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            res = train_tool.run(args)
+            torch.cuda.synchronize()
+            launches, bf16 = _read_counts(), _read_bf16_counts()
+        records = res["records"]
+        if [r["step"] for r in records] != list(range(1, DDP_STEPS + 1)):
+            raise AssertionError(f"train_ddp {kind}: steps {records}")
+        runs[kind].append({
+            "losses": [r["loss"] for r in records],
+            "ms": 1e3 * statistics.median(r["seconds"] for r in records[1:]),
+            "times_ms": [1e3 * r["seconds"] for r in records],
+            "stats": _bn_stats(res["state"].model), "launches": launches,
+            "bf16": bf16, "peak": torch.cuda.max_memory_allocated()})
+        del res
+    one, ddp = runs["one"][0], runs["ddp"][0]
+    errs = _trajectory(f"train_ddp {dtype}", ddp["losses"], one["losses"],
+                       ddp["stats"], one["stats"], f32_stats)
+    per_step = {"plane_sweep_warp": DDP_STEPS,
+                "frustum_warp_exact_z": (TRAIN_FRAMES - 2) * DDP_STEPS}
+    for kind, rs in runs.items():
+        for r in rs:
+            _launched_equal(f"train_ddp {dtype} {kind}", r, per_step, dtype)
+    ms = {k: statistics.median(r["ms"] for r in rs) for k, rs in runs.items()}
+    log("train_ddp", case="one_rank_nccl", dtype=dtype, steps=DDP_STEPS,
+        ms_per_step_ddp=ms["ddp"], ms_per_step_one_device=ms["one"],
+        ratio_ddp_to_one_device=ms["ddp"] / ms["one"],
+        times_ms={k: [r["times_ms"] for r in rs] for k, rs in runs.items()},
+        losses_ddp=ddp["losses"], losses_one_device=one["losses"], **errs,
+        launches_per_step={k: n // DDP_STEPS
+                           for k, n in ddp["launches"].items()},
+        max_memory_allocated_ddp=max(r["peak"] for r in runs["ddp"]),
+        max_memory_allocated_one_device=max(r["peak"] for r in runs["one"]),
+        nvidia_smi=nvidia_smi())
+    path = "train_ddp_nccl" + ("_bf16" if dtype == "bfloat16" else "")
+    for row in rows:
+        row["launches_by_path"][path] = ddp["launches"][row["name"]]
+        if dtype == "bfloat16":
+            row["bf16"]["launches_by_path"][path] = ddp["bf16"][row["name"]]
+    return one["stats"]
+
+
+def _launched_equal(path: str, run: dict, expected: dict, dtype: str):
+    want = {**dict.fromkeys(KERNELS, 0), **expected}
+    if run["launches"] != want:
+        raise AssertionError(f"{path}: kernel launches {run['launches']}, "
+                             f"expected {want}")
+    if run["bf16"] != (want if dtype == "bfloat16"
+                       else dict.fromkeys(KERNELS, 0)):
+        raise AssertionError(f"{path}: bf16 instance launches {run['bf16']}")
+
+
+def _ddp_windows(rank: int, size: int):
+    """This rank's first DDP_STEPS batches of the tool's synthetic
+    windows, sharded as tools/train.py shards them (one loader shard per
+    rank, batch 1); with size 1 and batch `2`, both ranks' in one batch."""
+    ds = train_tool.SyntheticTrainDataset(256, HEIGHT, WIDTH, TRAIN_FRAMES,
+                                          DEPTH_MIN, DEPTH_MAX)
+    loader = TrainLoader(ds, 2 if size == 1 else 1, shard_index=rank,
+                         num_shards=size, num_workers=2, seed=0)
+    with contextlib.closing(loader.epoch(0)) as source:
+        return [b for _, b in zip(range(DDP_STEPS), source)]
+
+
+def _ddp_model(mesh=None):
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50), seed=0).cuda()
+    if mesh is not None:
+        convert_sync_batchnorm(model, mesh)
+    optimizer, scheduler = make_optimizer(
+        model.named_parameters(),
+        warmup_multistep_schedule(4e-5, steps_per_epoch=10**6))
+    step = make_train_step(model, optimizer, scheduler, DEPTH_MIN, DEPTH_MAX,
+                           mesh=mesh)
+    return model, optimizer, scheduler, step
+
+
+def ddp_rank(rank: int, port: int, out: str) -> None:
+    """Case (b), one of two ranks on the one card over gloo (NCCL refuses
+    two ranks on one device): parallel.mesh and the trainer driven
+    directly, 3 steps of this rank's windows. Times every collective of
+    the step: the synced BatchNorm's and the scalars' all-reduces (each
+    after a device synchronize, so its span is the exchange) and DDP's
+    bucket all-reduces (from issue to completion, through a timing
+    communication hook of the same arithmetic as DDP's default). Writes
+    out/rank<r>.json; rank 0's checkpoint goes to out/ckpt."""
+    set_fp32_numerics()
+    dev = init_distributed(f"localhost:{port}", 2, rank, device="cuda:0",
+                           backend="gloo")
+    mesh = create_mesh(device=dev)
+    spans = []
+    all_reduce = torch.distributed.all_reduce
+
+    def timed_all_reduce(tensor, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = all_reduce(tensor, *a, **k)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter()))
+        return res
+
+    def timed_hook(state, bucket):
+        t0 = time.perf_counter()
+        buf = bucket.buffer().div_(mesh.size)
+        fut = all_reduce(buf, group=mesh.group, async_op=True).get_future()
+
+        def done(f):
+            spans.append((t0, time.perf_counter()))
+            return f.value()[0]
+
+        return fut.then(done)
+
+    def replicate_timed(*a, **k):
+        replica = parallel_mesh.replicate(*a, **k)
+        replica.register_comm_hook(None, timed_hook)
+        return replica
+
+    torch.distributed.all_reduce = timed_all_reduce
+    trainer.replicate = replicate_timed
+    model, optimizer, scheduler, step = _ddp_model(mesh)
+    batches = _ddp_windows(rank, 2)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, shares, steps = [], [], [], []
+    for batch in batches:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        spans.clear()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, 10.0)["loss"]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times.append(t1 - t0)
+        busy, end = 0.0, t0  # union of the collectives' spans in the step
+        for a, b in sorted(spans):
+            a, b = max(a, end), min(b, t1)
+            if b > a:
+                busy, end = busy + b - a, b
+        shares.append(busy / (t1 - t0))
+        steps.append(len(spans))
+    torch.distributed.all_reduce = all_reduce
+    launches = _read_counts()
+    worst = 0.0  # max |this rank - rank 0| of every parameter and statistic
+    for t in model.state_dict().values():
+        ref = t.clone()
+        torch.distributed.broadcast(ref, 0)
+        worst = max(worst, float((t.double() - ref.double()).abs().max()))
+    CheckpointManager(os.path.join(out, "ckpt")).save(
+        DDP_STEPS, TrainState(model, optimizer, scheduler, DDP_STEPS))
+    if rank == 0:
+        torch.save(_bn_stats(model), os.path.join(out, "stats.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "times_ms": [1e3 * t for t in times],
+                   "collective_share": shares, "collectives": steps,
+                   "launches": launches, "max_abs_param_spread": worst,
+                   "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}, f)
+    shutdown()
+
+
+def _ddp_two_ranks() -> None:
+    """Case (b): two ranks on the one card over gloo, each its own
+    process (`chip_smoke.py --ddp-rank R`), 3 float32 steps; then the
+    one-process step on the batch of both ranks' windows, from the same
+    weights, and rank 0's checkpoint into a one-device model."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+             str(r), "--ddp-port", str(port), "--ddp-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DDP_RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"ddp rank {r} exited {p.returncode}:"
+                                     f"\n{text[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        stats = torch.load(os.path.join(out, "stats.pt"), weights_only=True)
+        ckpt = CheckpointManager(os.path.join(out, "ckpt"))
+        if ckpt.steps() != [DDP_STEPS]:
+            raise AssertionError(f"ddp checkpoint steps {ckpt.steps()}")
+        blob = torch.load(ckpt.path(DDP_STEPS), weights_only=True)
+        DepthNetHybrid(ModelConfig(ndepths=NDEPTHS, resnet=50)
+                       ).load_state_dict(blob["model"], strict=True)
+    r0, r1 = ranks
+    if r0["losses"] != r1["losses"]:
+        raise AssertionError(f"ddp ranks' losses {r0['losses']} "
+                             f"{r1['losses']}")
+    if r1["max_abs_param_spread"] != 0.0:
+        raise AssertionError(f"ddp ranks' parameters differ by "
+                             f"{r1['max_abs_param_spread']}")
+    per_step = {"plane_sweep_warp": DDP_STEPS,
+                "frustum_warp_exact_z": (TRAIN_FRAMES - 2) * DDP_STEPS}
+    for r in ranks:
+        if r["launches"] != {**dict.fromkeys(KERNELS, 0), **per_step}:
+            raise AssertionError(f"ddp rank launches {r['launches']}")
+    # the function sync-BN makes the two ranks compute: one process, the
+    # batch of both windows, plain BatchNorm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, _, _, step = _ddp_model()
+    losses = []
+    times = []
+    for batch in _ddp_windows(0, 1):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, 10.0)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    errs = _trajectory("train_ddp two ranks", r0["losses"], losses, stats,
+                       _bn_stats(model))
+    ms = statistics.median(max(a, b) for a, b in zip(r0["times_ms"][1:],
+                                                     r1["times_ms"][1:]))
+    log("train_ddp", case="two_ranks_gloo_one_card", dtype="float32",
+        steps=DDP_STEPS, ms_per_step=ms,
+        times_ms=[r["times_ms"] for r in ranks],
+        collective_share=[r["collective_share"] for r in ranks],
+        collective_share_median=statistics.median(
+            r0["collective_share"][1:] + r1["collective_share"][1:]),
+        collectives_per_step=r0["collectives"], losses=r0["losses"],
+        max_abs_param_spread=r1["max_abs_param_spread"],
+        batch2_losses=losses, batch2_ms_per_step=1e3 * statistics.median(
+            times[1:]),
+        batch2_max_memory_allocated=torch.cuda.max_memory_allocated(),
+        **errs, launches_per_step={k: n // DDP_STEPS
+                                   for k, n in r0["launches"].items()},
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        checkpoint_strict_load=True, nvidia_smi=nvidia_smi())
+    del model
+
+
+def phase_train_ddp(rows: list[dict]) -> None:
+    """Data-parallel training at the flagship width (256x320, D = 64,
+    ResNet-50, 5-frame windows, batch 1 per rank, EST on, random weights
+    from seed 0, synthetic windows): (a) one NCCL rank through the tool in
+    float32 and bf16, (b) two gloo ranks on the one card."""
+    f32_stats = _ddp_one_rank(rows, "float32")
+    _ddp_one_rank(rows, "bfloat16", f32_stats)
+    _ddp_two_ranks()
+
+
 def main() -> None:
     dev_info = phase_device()
     phase_build()
@@ -2124,6 +2474,7 @@ def main() -> None:
         phase_dataset_path(rows, main_ms)
         phase_train_dataset(rows, train_ms["train"])
         phase_release(rows, train_ckpt)
+    phase_train_ddp(rows)
     for row in rows:  # every kernel ran on a main path, in both dtypes
         row["op"] = OPS[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2141,4 +2492,12 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:  # one rank of phase_train_ddp's case (b)
+        flags = argparse.ArgumentParser()
+        flags.add_argument("--ddp-rank", type=int, required=True)
+        flags.add_argument("--ddp-port", type=int, required=True)
+        flags.add_argument("--ddp-out", required=True)
+        a = flags.parse_args()
+        ddp_rank(a.ddp_rank, a.ddp_port, a.ddp_out)
+    else:
+        main()

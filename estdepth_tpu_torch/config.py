@@ -72,6 +72,10 @@ class TrainConfig:
     batch_per_device: int = 1
     grad_accum: int = 1  # microbatches per step (trainer.make_train_step)
     remat: bool = False  # recompute the forward during the backward
+    # BatchNorm statistics averaged over the data mesh in a data-parallel
+    # run (models/layers.convert_sync_batchnorm; the reference's apex
+    # sync-BN, train_hybrid.py:291-295)
+    sync_bn: bool = True
     seed: int = 1
     loss_scale_weight: float = 0.8  # per-scale weight 0.8**scale
     summary_freq: int = 10

@@ -72,7 +72,8 @@ class TrainLoader:
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's batches, decoded by `num_workers` threads at most
-        `prefetch` batches ahead. A worker's exception is raised here."""
+        `prefetch` batches ahead. A worker's exception is raised here;
+        closing the iterator stops and joins the epoch's threads."""
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)  # fresh retry draws per epoch
         batches = self.order(epoch).reshape(-1, self.batch_size)
@@ -117,7 +118,11 @@ class TrainLoader:
                     raise item
                 yield item
         finally:
+            # the producer sees the event within a put's poll, leaves its
+            # pool (which joins the decode threads) and ends: no thread of
+            # the epoch outlives the iterator's close
             stop.set()
+            thread.join()
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

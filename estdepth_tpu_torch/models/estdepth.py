@@ -90,6 +90,12 @@ class DepthNetHybrid(nn.Module):
         finally:
             self.train(was)
 
+    def trains_every_parameter(self, views: int) -> bool:
+        """Whether the loss of a train-mode forward over `views` frames
+        (no memory) reaches every parameter: the key layer feeds only the
+        EST fusion, which needs a window of two targets or more."""
+        return self.cfg.est_transformer and views - 2 > 1
+
     def depth_candidates(self, batch: int, device=None) -> torch.Tensor:
         """[B, D] uniform depth hypotheses (model_hybrid.py:29-33)."""
         c = self.cfg

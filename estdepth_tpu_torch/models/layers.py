@@ -8,7 +8,9 @@ estdepth_tpu/utils/convert.py:export_state_dict emits. BatchNorm is
 `nn.BatchNorm2d/3d` (eps 1e-5, momentum 0.1), whose train mode is the JAX
 package's TorchBatchNorm: the biased batch variance normalizes, the
 unbiased one updates `running_var`. In eval mode (the model's resting
-state) it normalizes with the running statistics.
+state) it normalizes with the running statistics. `convert_sync_batchnorm`
+swaps every BatchNorm for `SyncBatchNorm2d/3d`, the JAX package's
+TorchBatchNorm(axis_name="data"): statistics averaged over a data mesh.
 
 The JAX package's TPU re-expressions of the 3D conv (Decomp3DConv,
 PackedConv3D, conv3d_as2d) bind the same parameters as a plain conv3d and
@@ -78,6 +80,77 @@ def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
     elif act is not None:
         raise ValueError(f"unknown activation {act!r}")
     return nn.Sequential(*layers)
+
+
+class _SyncBatchNorm:
+    """Train mode as the JAX package's TorchBatchNorm with `axis_name`
+    (estdepth_tpu/models/layers.py:73-92): the float32 mean and mean of
+    squares of this rank's input, averaged over `mesh` by one
+    differentiable all-reduce of [mean, mean2] (none without a mesh), var
+    = max(mean2 - mean^2, 0), the running variance updated with Bessel's
+    n / (n - 1) over the global count, momentum 0.1; the output computed
+    in float32 and rounded once to the input's dtype. Eval mode is
+    nn.BatchNorm's, on the running statistics. Subclasses of
+    nn.BatchNorm2d/3d with the same parameters and buffers, so the
+    state_dict names do not change."""
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0, *range(2, x.dim())]
+        xf = x.float()
+        mean, mean2 = xf.mean(dims), xf.square().mean(dims)
+        n = x.numel() // x.shape[1]
+        if self.mesh is not None:
+            mean, mean2 = self.mesh.pmean(torch.cat([mean, mean2])).chunk(2)
+            n *= self.mesh.size
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class SyncBatchNorm2d(_SyncBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class SyncBatchNorm3d(_SyncBatchNorm, nn.BatchNorm3d):
+    pass
+
+
+def convert_sync_batchnorm(module: nn.Module, mesh=None) -> nn.Module:
+    """Swap every nn.BatchNorm2d/3d under `module` for SyncBatchNorm2d/3d
+    over `mesh` (parallel.mesh.Mesh; None: this process's statistics),
+    in place and keeping the same parameter and buffer tensors, so an
+    optimizer made before, the state_dict names and a checkpoint are
+    unchanged. Returns `module`."""
+    for name, child in module.named_children():
+        if isinstance(child, _SyncBatchNorm):
+            child.mesh = mesh
+        elif isinstance(child, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            cls = (SyncBatchNorm2d if isinstance(child, nn.BatchNorm2d)
+                   else SyncBatchNorm3d)
+            new = cls(child.num_features, eps=child.eps,
+                      momentum=child.momentum)
+            new.weight, new.bias = child.weight, child.bias
+            for buf in ("running_mean", "running_var", "num_batches_tracked"):
+                setattr(new, buf, getattr(child, buf))
+            if hasattr(child, "zero_init"):
+                new.zero_init = child.zero_init
+            new.train(child.training)
+            new.mesh = mesh
+            setattr(module, name, new)
+        else:
+            convert_sync_batchnorm(child, mesh)
+    return module
 
 
 def he_conv(conv: nn.Module) -> nn.Module:

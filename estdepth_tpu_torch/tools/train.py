@@ -1,8 +1,11 @@
-"""Train DepthNetHybrid on one device (counterpart of tools/train.py).
+"""Train DepthNetHybrid on one device or data-parallel on several
+(counterpart of tools/train.py).
 
     python -m estdepth_tpu_torch.tools.train --datapath /data/scannet \
         --split train_split.txt --pretrained-encoder resnet50.pth
     python -m estdepth_tpu_torch.tools.train --synthetic --steps 4
+    torchrun --nproc_per_node 4 -m estdepth_tpu_torch.tools.train \
+        --multihost --datapath /data/scannet
 
 The reference's recipe (train_hybrid.py): Adam 4e-5 with L2 4e-4, linear
 warm-up then multi-step decay, gradient clip 10 for epochs < 3 and 1 after,
@@ -26,10 +29,19 @@ the batch's first window to <logdir>/images every --image-freq steps, and
 checkpoints to <logdir>/ckpt; --resume continues from the latest one. Runs
 on the CUDA device unless --device cpu is given.
 
-Not here, of the JAX tool's flags: --multihost, --coordinator,
---num-processes and --process-id wait for data parallelism (DDP over NCCL);
---fast-frustum, --pallas-warp and --conv3d-as2d are TPU forms (the warp is
-chosen by --exact-warp and --exact-z).
+--multihost trains data-parallel, one process per device: from torchrun's
+environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK), or
+from --coordinator host:port, --num-processes and --process-id as the JAX
+tool's flags. Each process loads its own shard of every epoch
+(--batch-per-device windows a step), DDP averages the gradients over NCCL
+(gloo with --device cpu), BatchNorm statistics are averaged over the
+processes (TrainConfig.sync_bn, the reference's apex sync-BN), and rank 0
+alone writes the scalars, the images and the checkpoints, which load into
+a one-device model.
+
+Not here, of the JAX tool's flags: --fast-frustum, --pallas-warp and
+--conv3d-as2d are TPU forms (the warp is chosen by --exact-warp and
+--exact-z).
 """
 
 from __future__ import annotations
@@ -51,6 +63,10 @@ from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_window,
 )
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+from estdepth_tpu_torch.models.layers import convert_sync_batchnorm
+from estdepth_tpu_torch.parallel.mesh import (
+    barrier, create_mesh, init_distributed, shutdown,
+)
 from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
 from estdepth_tpu_torch.train.trainer import (
     REMAT_POLICIES, TrainState, make_optimizer, make_train_step,
@@ -154,6 +170,14 @@ def parse_args(argv=None):
                         "in the reference's loop order")
     add_bf16_flag(p)
     p.add_argument("--device", type=str, default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over processes (torch.distributed): "
+                        "torchrun's environment, or the three flags below")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="with --multihost: host:port where the processes "
+                        "meet (default: torchrun's MASTER_ADDR/PORT)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -190,10 +214,14 @@ def make_dataset(args):
         depth_min=max(args.depth_min, 0.1), depth_max=args.depth_max)
 
 
-def build(args, device):
-    """The model (with --pretrained-encoder applied), optimizer, scheduler
-    and loader `args` describe: (state, loader, steps_per_epoch)."""
+def build(args, device, mesh=None):
+    """The model (with --pretrained-encoder applied; BatchNorm synced over
+    `mesh` when one is given), optimizer, scheduler and this process's
+    shard of the loader `args` describe: (state, loader,
+    steps_per_epoch)."""
     loader = TrainLoader(make_dataset(args), args.batch_per_device,
+                         shard_index=mesh.rank if mesh else 0,
+                         num_shards=mesh.size if mesh else 1,
                          num_workers=args.num_workers, seed=args.seed)
     steps_per_epoch = max(loader.steps_per_epoch(), 1)
     milestones, decay = args.lrepochs.split(":")
@@ -209,6 +237,8 @@ def build(args, device):
         sequential_cost_bn=args.sequential_cost_bn,
         compute_dtype=compute_dtype_flag(args)), seed=args.seed)
     model.to(device)
+    if mesh is not None and TrainConfig().sync_bn:
+        convert_sync_batchnorm(model, mesh)
     if args.pretrained_encoder:
         encoder = load_pretrained_encoder(args.pretrained_encoder)
         target = model.state_dict()
@@ -249,14 +279,34 @@ def run(args) -> dict:
     """The training loop; returns {"state", "records"}: the final
     TrainState and one record per logged step (step, epoch, seconds of the
     step, loader_seconds the loop waited for the batch, and the step's
-    scalars as floats)."""
-    device = resolve_device(args.device)
-    set_fp32_numerics()
+    scalars as floats). With --multihost this process joins the group
+    first and leaves it at the end."""
     if args.batch_per_device % args.grad_accum:
         raise SystemExit("--batch-per-device must be divisible by "
                          "--grad-accum")
+    mesh = None
+    if args.multihost:
+        device = init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, device=args.device)
+        mesh = create_mesh(device=device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            shutdown()
+
+
+def _train(args, device, mesh) -> dict:
+    set_fp32_numerics()
+    rank0 = mesh is None or mesh.rank == 0
+    processes = mesh.size if mesh else 1
     print("args:", vars(args))
-    state, loader, steps_per_epoch = build(args, device)
+    print(f"devices={processes} "
+          f"global_batch={args.batch_per_device * processes} "
+          f"local_batch={args.batch_per_device} processes={processes}")
+    state, loader, steps_per_epoch = build(args, device, mesh)
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"device={device} dataset={len(loader.dataset)} "
           f"steps/epoch={steps_per_epoch} params: {n_params / 1e6:.2f}M")
@@ -280,8 +330,8 @@ def run(args) -> dict:
     step_fn = make_train_step(
         state.model, state.optimizer, state.scheduler, args.depth_min,
         args.depth_max, remat=args.remat, grad_accum=args.grad_accum,
-        remat_policy=args.remat_policy)
-    logger = ScalarLogger(args.logdir)
+        remat_policy=args.remat_policy, mesh=mesh)
+    logger = ScalarLogger(args.logdir) if rank0 else None
     meter = DictAverageMeter()
     records, total_steps = [], 0
     # anomaly mode as a context: on for the loop with --debug-nans
@@ -304,7 +354,8 @@ def run(args) -> dict:
                         scalars = {k: float(v) for k, v in scalars.items()}
                         dt = time.perf_counter() - t1
                         meter.update(scalars)
-                        logger.log(state.step, scalars)
+                        if logger:
+                            logger.log(state.step, scalars)
                         records.append({"step": state.step, "epoch": epoch,
                                         "seconds": dt,
                                         "loader_seconds": t1 - t0,
@@ -314,19 +365,24 @@ def run(args) -> dict:
                               f"delta0 {scalars['delta_0']:.4f} "
                               f"thred0 {scalars['thred_0']:.4f} "
                               f"time {dt:.3f}s wait {t1 - t0:.3f}s")
-                    if state.step % args.image_freq == 0:
+                    if state.step % args.image_freq == 0 and rank0:
                         dump_images(state.model, state.step, batch, args)
                     if state.step % args.ckpt_steps == 0:
-                        ckpt.save(state.step, state)
+                        ckpt.save(state.step, state)  # rank 0 writes
                     if args.steps and total_steps >= args.steps:
                         break
             ckpt.save(state.step, state)
             if args.steps and total_steps >= args.steps:
                 break
-    logger.close()
+    if logger:
+        logger.close()
     if meter.count:
         print("mean of logged steps:", " ".join(
             f"{k}={v:.4f}" for k, v in meter.mean().items()))
+    # rank 0's last save and the image dumps run after the others' last
+    # step: meet before leaving the group (the JAX tool's end, its
+    # tools/train.py:378-385)
+    barrier()
     print("training done")
     return {"state": state, "records": records}
 

@@ -8,6 +8,12 @@ A checkpoint is one file `step_<n>.pt` written by `torch.save`:
 tensors, numbers, lists and dicts only, so it loads with
 `torch.load(weights_only=True)`. The model's state_dict names are the
 reference's, so `"model"` is also a reference checkpoint's state_dict.
+
+In a data-parallel run every rank calls `save`; rank 0 alone writes (the
+reference's rank-0 torch.save, train_hybrid.py:188) and a barrier follows,
+so no rank reads or prunes a checkpoint before it is whole. The model's
+state_dict is the unwrapped module's (no DDP `module.` prefix), so a
+checkpoint of any number of ranks loads into a one-device model.
 """
 
 from __future__ import annotations
@@ -17,10 +23,17 @@ import re
 from typing import Optional
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from estdepth_tpu_torch.parallel.mesh import barrier, process_index
 from estdepth_tpu_torch.train.trainer import TrainState
 
 _NAME = re.compile(r"step_(\d+)\.pt$")
+
+
+def _unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    return model.module if isinstance(model, DistributedDataParallel) \
+        else model
 
 
 class CheckpointManager:
@@ -42,16 +55,19 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState) -> None:
         """Write `state` as step `step` (atomically: a temporary file,
-        then a rename) and drop the oldest beyond max_to_keep."""
-        blob = {"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "step": int(step)}
-        tmp = self.path(step) + ".tmp"
-        torch.save(blob, tmp)
-        os.replace(tmp, self.path(step))
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        then a rename) and drop the oldest beyond max_to_keep; on rank 0
+        only, and every rank waits for it."""
+        if process_index() == 0:
+            blob = {"model": _unwrap(state.model).state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "scheduler": state.scheduler.state_dict(),
+                    "step": int(step)}
+            tmp = self.path(step) + ".tmp"
+            torch.save(blob, tmp)
+            os.replace(tmp, self.path(step))
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier()
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
@@ -63,7 +79,7 @@ class CheckpointManager:
         device = next(state.model.parameters()).device
         blob = torch.load(self.path(step), map_location=device,
                           weights_only=True)
-        state.model.load_state_dict(blob["model"])
+        _unwrap(state.model).load_state_dict(blob["model"])
         state.optimizer.load_state_dict(blob["optimizer"])
         state.scheduler.load_state_dict(blob["scheduler"])
         state.step = int(blob["step"])

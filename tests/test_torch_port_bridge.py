@@ -84,6 +84,7 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "estdepth_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "estdepth_tpu_torch" / "parallel" / "mesh.py" in files
     bad = [(f.relative_to(ROOT).as_posix(), name)
            for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]

@@ -629,3 +629,44 @@ def test_bf16_stream_on_the_card_matches_cpu(dev):
     own = dist(outs["bfloat16", str(dev)], outs["float32", str(dev)])
     assert dist(outs["bfloat16", str(dev)], outs["bfloat16", "cpu"]) <= (
         2 * own)
+
+
+def test_one_nccl_rank_matches_the_one_device_step(dev, tmp_path):
+    """tools/train.py --multihost on one NCCL rank (a data mesh of one
+    process: DDP, synced BatchNorm, the scalars' all-reduce) against the
+    tool's one-device run from the same weights and windows: the losses of
+    3 steps at rtol 3e-3, the BatchNorm statistics at rtol 5e-3 (atol
+    5e-4), the PARITY.md trajectory tolerances, and the same kernel
+    launches. The ranks' own tests over gloo on the CPU are
+    tests/test_torch_port_parallel.py (it imports JAX, which the card's
+    machine lacks)."""
+    import socket
+
+    from estdepth_tpu_torch.tools import train
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    flags = ["--synthetic", "--steps", "3", "--height", "64", "--width",
+             "96", "--ndepths", "8", "--depth-min", "0.5", "--depth-max",
+             "8.0", "--resnet", "18", "--n-frames", "4", "--summary-freq",
+             "1", "--seed", "0", "--num-workers", "1"]
+    kernels = (plane_warp.KERNEL, plane_warp_exact_z.KERNEL)
+    runs = {}
+    for name, extra in (("one", []), ("nccl", [
+            "--multihost", "--coordinator", f"localhost:{port}",
+            "--num-processes", "1", "--process-id", "0"])):
+        before = [k.launches for k in kernels]
+        res = train.run(train.parse_args(
+            flags + ["--logdir", str(tmp_path / name)] + extra))
+        runs[name] = ([r["loss"] for r in res["records"]],
+                      {k: v.cpu() for k, v in
+                       res["state"].model.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))},
+                      [k.launches - b for k, b in zip(kernels, before)])
+    assert not torch.distributed.is_initialized()
+    np.testing.assert_allclose(runs["nccl"][0], runs["one"][0], rtol=3e-3)
+    for k, want in runs["one"][1].items():
+        np.testing.assert_allclose(runs["nccl"][1][k].numpy(), want.numpy(),
+                                   rtol=5e-3, atol=5e-4, err_msg=k)
+    assert runs["nccl"][2] == runs["one"][2] == [3, 6]

@@ -295,7 +295,8 @@ def test_train_tool_runs_and_resumes(tmp_path, capsys):
     assert len(lines) == 3
     assert train_tool.parse_args(argv + ["--bf16"]).bf16
     with pytest.raises(SystemExit):  # flags that are not ported are refused
-        train_tool.parse_args(argv + ["--multihost"])
+        train_tool.parse_args(argv + ["--fast-frustum"])
+    assert train_tool.parse_args(argv + ["--multihost"]).multihost
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_tool.run(train_tool.parse_args(

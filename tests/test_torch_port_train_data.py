@@ -223,10 +223,11 @@ def test_loader_raises_worker_errors_and_stops():
         list(loader.epoch(0))
     it = TrainLoader(_Indices(40), 2, num_workers=2, prefetch=1).epoch(0)
     next(it)
-    it.close()  # an abandoned epoch stops its producer and its pool
+    it.close()  # an abandoned epoch stops and joins its producer and pool
     started = set(threading.enumerate()) - before
     for t in started:
-        t.join(timeout=5)
+        if t.ident is not None:  # a thread still starting cannot be joined
+            t.join(timeout=5)
     assert not any(t.is_alive() for t in started)
 
 
