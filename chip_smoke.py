@@ -52,8 +52,18 @@ of this script (`--ddp-rank R --ddp-port P --ddp-out DIR`), driving
 parallel.mesh and the trainer directly: equal losses and parameters
 across the ranks, agreement with the one-process step on both ranks'
 windows, rank 0's checkpoint loaded into a one-device model, and the
-share of each step with a collective in flight. Every phase prints one
-line; any failure raises and exits non-zero. The last line is {"ok":
+share of each step with a collective in flight. The SENet model (phase
+`senet_path`, ModelConfig.feature_net "senet"): a small stream, Joint
+chain and bf16 stream on the card against the CPU, the full-width ESTM
+stream and Joint chain in turns with the PSM model in float32 and bf16
+(the same kernel launches), and 3 training steps. `--scan
+--scene-batch` (phase `scene_batch`): both eval tools over five scenes
+of unequal lengths at --scene-batch 1 and 4 in turns, float32 and bf16:
+the maps of batch 4 against batch 1 and against a runner, one group's
+launches against one scene's, kernels 1 and 2 bit-equal to their plain
+versions at the batch-4 shapes, frames (targets) per second, peak
+memory and the device's idle share. Every phase prints one line; any
+failure raises and exits non-zero. The last line is {"ok":
 true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
@@ -101,7 +111,7 @@ from estdepth_tpu_torch.data.eval_windows import WindowEvalDataset
 from estdepth_tpu_torch.data.pipeline import TrainLoader
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, intrinsics, pose, render, synthetic_stream,
-    write_scannet_scene, write_scannet_train_scene,
+    synthetic_window, write_scannet_scene, write_scannet_train_scene,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
@@ -834,19 +844,41 @@ def _pitched_frames(n: int):
     return frames
 
 
+def _stream(model, frames, dev) -> list:
+    """An ESTMRunner (lwindow 3, memory 2) over frames: the 4 depth scales
+    of each output on the host."""
+    runner = ESTMRunner(model, 64, 96, device=dev)
+    return [out.cpu() for f in frames if (out := runner.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+
+
+def _joint_chain(model, frames, dev, windows: int) -> list:
+    """A JointRunner over `windows` windows of frames: each window's
+    depth [1, 3, 4, H, W] on the host."""
+    stride = SEQ_LENGTH - 2
+    imgs = np.stack([f["img"] for f in frames])[None]
+    poses = np.stack([f["cam_pose"] for f in frames])[None]
+    runner = eval_joint.JointRunner(model, device=dev)
+    return [runner.run_window(
+        imgs[:, wi * stride:wi * stride + SEQ_LENGTH],
+        poses[:, wi * stride:wi * stride + SEQ_LENGTH],
+        frames[0]["cam_intr"][None])[0].cpu() for wi in range(windows)]
+
+
+def _max_err(a: list, b: list) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+
+
 def phase_reference() -> None:
     """A small ESTM stream (ndepths 8, 64x96, ResNet-18, 5 windows) through
     the kernels on the card against the plain PyTorch path on the CPU,
     same weights: all 4 depth scales within the chain tolerance 8e-3."""
     frames = _pitched_frames(7)
     cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96, device=dev)
-        outs[dev] = [out.cpu() for f in frames if (out := runner.push_frame(
-            f["img"], f["cam_pose"], f["cam_intr"])) is not None]
-    err = max((a - b).abs().max().item()
-              for a, b in zip(outs["cpu"], outs["cuda"]))
+    outs = {dev: _stream(DepthNetHybrid(cfg, seed=0), frames, dev)
+            for dev in ("cpu", "cuda")}
+    err = _max_err(outs["cpu"], outs["cuda"])
     log("reference", windows=len(outs["cuda"]), max_abs_err=err, atol=8e-3)
     if not (len(outs["cuda"]) == 5 and err < 8e-3):
         raise AssertionError(f"card vs CPU stream: max abs err {err}")
@@ -912,9 +944,6 @@ def phase_reference_joint() -> None:
     scales within the chain tolerance 8e-3."""
     windows, stride = 3, SEQ_LENGTH - 2
     frames = _pitched_frames((windows - 1) * stride + SEQ_LENGTH)
-    imgs = np.stack([f["img"] for f in frames])[None]
-    poses = np.stack([f["cam_pose"] for f in frames])[None]
-    intr = frames[0]["cam_intr"][None]
     fused = (windows - 1) * stride  # one warp per target of an EST window
     modes = {
         "plane_mix_exact_z": (dict(), {"frustum_warp_exact_z": fused}),
@@ -927,18 +956,11 @@ def phase_reference_joint() -> None:
         cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
                           **options)
         counts = _read_counts()
-        outs = {}
-        for dev in ("cpu", "cuda"):
-            runner = eval_joint.JointRunner(DepthNetHybrid(cfg, seed=0),
-                                            device=dev)
-            outs[dev] = [runner.run_window(
-                imgs[:, wi * stride:wi * stride + SEQ_LENGTH],
-                poses[:, wi * stride:wi * stride + SEQ_LENGTH],
-                intr)[0].cpu() for wi in range(windows)]
+        outs = {dev: _joint_chain(DepthNetHybrid(cfg, seed=0), frames, dev,
+                                  windows) for dev in ("cpu", "cuda")}
         launched = {name: n - counts[name]
                     for name, n in _read_counts().items()}
-        err = max((a - b).abs().max().item()
-                  for a, b in zip(outs["cpu"], outs["cuda"]))
+        err = _max_err(outs["cpu"], outs["cuda"])
         log("reference_joint", frustum_mode=mode, windows=windows,
             launches=launched, max_abs_err=err, atol=8e-3)
         if not (outs["cuda"][0].shape == (1, 3, 4, 64, 96) and err < 8e-3):
@@ -2454,6 +2476,469 @@ def phase_train_ddp(rows: list[dict]) -> None:
     _ddp_two_ranks()
 
 
+# The SENet model (phase_senet_path) and --scene-batch (phase_scene_batch)
+SENET_TRAIN_STEPS = 3  # the first warms up
+# phase_scene_batch: the frames of the five ScanNet-layout scenes both eval
+# tools read (frame interval 1; ESTM: 5, 10, 6, 4 and 7 windows, Joint: 1,
+# 3, 1, 1 and 2), written at 240x320 with ScanNet's focal halved and
+# resized to 256x320 by the tools
+SCAN_SCENE_FRAMES = (7, 12, 8, 6, 9)
+SCENE_BATCH, SCENE_BATCH_TOL = 4, 1e-3
+PROCESSOR_SPAN = "chip_smoke.processor"  # the scan processors' calls
+
+
+def _senet_small() -> dict:
+    """(a) of phase_senet_path: the SENet model at the small size on the
+    card against the CPU: a 5-window ESTM stream and a 3-window Joint
+    chain in float32 within 8e-3, and the bf16 stream within twice the
+    card's own bf16-against-float32 distance (the bf16 rule)."""
+    windows = 3
+    frames = _pitched_frames((windows - 1) * (SEQ_LENGTH - 2) + SEQ_LENGTH)
+    out = {}
+
+    def model(dtype="float32"):
+        return DepthNetHybrid(ModelConfig(
+            ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+            feature_net="senet", compute_dtype=dtype), seed=0)
+
+    streams = {(dtype, dev): _stream(model(dtype), frames[:7], dev)
+               for dtype, dev in (("float32", "cpu"), ("float32", "cuda"),
+                                  ("bfloat16", "cuda"),
+                                  ("bfloat16", "cpu"))}
+    out["estm_max_abs_err"] = _max_err(streams["float32", "cpu"],
+                                       streams["float32", "cuda"])
+    joint = {dev: _joint_chain(model(), frames, dev, windows)
+             for dev in ("cpu", "cuda")}
+    out["joint_max_abs_err"] = _max_err(joint["cpu"], joint["cuda"])
+    own = _max_err(streams["bfloat16", "cuda"], streams["float32", "cuda"])
+    out["bf16_max_abs_err"] = _max_err(streams["bfloat16", "cuda"],
+                                       streams["bfloat16", "cpu"])
+    out["bf16_against_f32"] = own
+    if not (len(streams["float32", "cuda"]) == 5
+            and out["estm_max_abs_err"] < 8e-3
+            and out["joint_max_abs_err"] < 8e-3
+            and out["bf16_max_abs_err"] <= 2 * own):
+        raise AssertionError(f"SENet model, card vs CPU: {out}")
+    return out
+
+
+def _senet_full_width(rows: list[dict]) -> dict:
+    """(b) of phase_senet_path: the ESTM stream and the Joint chain at the
+    flagship width, the SENet and the PSM model in turns (psm, senet,
+    senet, psm) in each dtype: ms per frame and window, peak memory, and
+    the kernel launches, which must be the PSM model's."""
+    steps = FRAMES - LWINDOW + 1
+    frames = list(synthetic_stream(SyntheticSceneConfig(
+        height=HEIGHT, width=WIDTH, seed=0), FRAMES, DEPTH_MIN, DEPTH_MAX))
+    cfg = SyntheticSceneConfig(height=HEIGHT, width=WIDTH)
+    stride = SEQ_LENGTH - 2
+    samples = [synthetic_window(cfg, SEQ_LENGTH, wi * stride, DEPTH_MIN,
+                                DEPTH_MAX) for wi in range(JOINT_WINDOWS)]
+    fused = (JOINT_WINDOWS - 1) * stride
+    expected = {"estm": {"plane_sweep_warp": steps,
+                         "frustum_warp_exact_z": steps - 1},
+                "joint": {"plane_sweep_warp": JOINT_WINDOWS,
+                          "frustum_warp_exact_z": fused}}
+
+    def estm(model):
+        runner = ESTMRunner(model, HEIGHT, WIDTH, LWINDOW, MEMORY,
+                            output_scales=SERVING_SCALES, device="cuda")
+        times, maps, _ = eval_estm.stream_scene(runner, frames, LWINDOW)
+        return times, np.stack(maps)
+
+    def joint(model):
+        runner = eval_joint.JointRunner(model, device="cuda")
+        times, maps = [], []
+        for s in samples:
+            t0 = time.perf_counter()
+            depth, _ = runner.run_window(s["imgs"], s["cam_poses"],
+                                         s["cam_intr"])
+            maps.append(depth[0][:, list(SERVING_SCALES)].cpu().numpy())
+            times.append(time.perf_counter() - t0)
+        return times, np.stack(maps)
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        suffix = "" if dtype == "float32" else "_bf16"
+        models = {net: DepthNetHybrid(ModelConfig(
+            ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+            resnet=50, feature_net=net, compute_dtype=dtype), seed=0)
+            for net in ("psm", "senet")}
+        for protocol, run, shape in (
+                ("estm", estm, (steps, 2, HEIGHT, WIDTH)),
+                ("joint", joint, (JOINT_WINDOWS, stride, 2, HEIGHT,
+                                  WIDTH))):
+            ms = {"psm": [], "senet": []}
+            info = {}
+            for net in ("psm", "senet", "senet", "psm"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                times, maps = run(models[net])
+                path = f"senet_{protocol}{suffix}"
+                launches, bf16 = _launched(path, dtype, expected[protocol])
+                ms[net].append(1e3 * statistics.median(times[2:]))
+                if net not in info:
+                    info[net] = {
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(),
+                        "depth_range": _check_depths(path, maps, shape),
+                        "launches": launches}
+                    if net == "senet":
+                        for row in rows:
+                            row["launches_by_path"][path] = launches[
+                                row["name"]]
+                            if dtype == "bfloat16":
+                                row["bf16"]["launches_by_path"][path] = bf16[
+                                    row["name"]]
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            out[f"{protocol}{suffix}"] = {
+                "ms_senet": med["senet"], "ms_psm": med["psm"],
+                "ratio_senet_to_psm": med["senet"] / med["psm"],
+                "ms_runs": ms, **info}
+        del models
+    return out
+
+
+def _senet_train() -> dict:
+    """(c) of phase_senet_path: 3 training steps of the SENet model at the
+    flagship width (5-frame windows, batch 1, EST on; the trainer's step,
+    float32): finite losses, ms per step after the first, peak memory and
+    the launches per step (one sweep, one exact-z warp per target)."""
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50, feature_net="senet"), seed=0).cuda()
+    optimizer, scheduler = make_optimizer(
+        model.named_parameters(),
+        warmup_multistep_schedule(4e-5, steps_per_epoch=10**6))
+    step = make_train_step(model, optimizer, scheduler, DEPTH_MIN, DEPTH_MAX)
+    cfg = SyntheticSceneConfig(height=HEIGHT, width=WIDTH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times, losses = [], []
+    for i in range(SENET_TRAIN_STEPS):
+        window = synthetic_window(cfg, TRAIN_FRAMES, 2 * i, DEPTH_MIN,
+                                  DEPTH_MAX)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in window.items()}
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, 10.0)["loss"]))  # waits
+        times.append(time.perf_counter() - t0)
+    launches, _ = _launched("senet_train", "float32", {
+        "plane_sweep_warp": SENET_TRAIN_STEPS,
+        "frustum_warp_exact_z": (TRAIN_FRAMES - 2) * SENET_TRAIN_STEPS})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"senet_train: losses {losses}")
+    return {"steps": SENET_TRAIN_STEPS, "losses": losses,
+            "times_ms": [1e3 * t for t in times],
+            "ms_per_step": 1e3 * statistics.median(times[1:]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches}
+
+
+def phase_senet_path(rows: list[dict]) -> None:
+    """The SENet model (ModelConfig.feature_net="senet": SEFeatureNet as
+    the matching encoder), random weights from seed 0: (a) at the small
+    size on the card against the CPU, (b) the ESTM stream and the Joint
+    chain at the flagship width in turns with the PSM model, float32 and
+    bf16, (c) 3 training steps at the flagship width. Every kernel's count
+    is set to 0 just before each run of (b) and (c) and read just after."""
+    start = time.perf_counter()
+    small = _senet_small()
+    full = _senet_full_width(rows)
+    train = _senet_train()
+    for row in rows:
+        row["launches_by_path"]["senet_train"] = train["launches"][
+            row["name"]]
+    log("senet_path", small=small, full_width=full, train=train,
+        seconds=time.perf_counter() - start, nvidia_smi=nvidia_smi())
+    torch.cuda.empty_cache()
+
+
+def _write_scenes(root: str) -> None:
+    """phase_scene_batch's ScanNet-layout scenes: seeded textures, frame
+    counts SCAN_SCENE_FRAMES, 240x320 with ScanNet's focal halved."""
+    for seed, n in enumerate(SCAN_SCENE_FRAMES):
+        cfg = SyntheticSceneConfig(height=240, width=320, focal=288.935,
+                                   seed=seed)
+        write_scannet_scene(os.path.join(root, f"scene{seed:04d}_00"), cfg,
+                            [pose(cfg, i) for i in range(n)])
+
+
+@contextlib.contextmanager
+def _processor_spans():
+    """Each call of the eval tools' scan processors
+    (SequenceProcessor.process_scenes, the callable that
+    eval_joint.make_joint_processor returns) inside
+    record_function(PROCESSOR_SPAN), closed after a synchronize, so every
+    device op a call launches ends inside its span."""
+    from torch.profiler import record_function
+
+    def spanned(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with record_function(PROCESSOR_SPAN):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return call
+
+    method = eval_estm.SequenceProcessor.process_scenes
+    factory = eval_joint.make_joint_processor
+    eval_estm.SequenceProcessor.process_scenes = spanned(method)
+    eval_joint.make_joint_processor = (
+        lambda *args, **kwargs: spanned(factory(*args, **kwargs)))
+    try:
+        yield
+    finally:
+        eval_estm.SequenceProcessor.process_scenes = method
+        eval_joint.make_joint_processor = factory
+
+
+def _idle_share(prof) -> dict:
+    """The device's idle share inside the processor calls of one profiled
+    tool run (_processor_spans): 1 - (time in which a kernel, copy or fill
+    ran on the card within the PROCESSOR_SPAN ranges) / (the ranges'
+    length). Device intervals are merged before they are summed, so
+    overlapping streams count once. Read from the profiler's raw events
+    (no event tree is built). The profiler slows the host, so the share
+    is an upper bound."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    spans = [(e.start_ns(), e.end_ns()) for e in events
+             if e.name() == PROCESSOR_SPAN and e.device_type() == cpu]
+    merged = []
+    for lo, hi in sorted((e.start_ns(), e.end_ns()) for e in events
+                         if e.device_type() == cuda
+                         and not e.is_user_annotation()):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    span_ns = sum(hi - lo for lo, hi in spans)
+    busy_ns = sum(max(0, min(hi, b) - max(lo, a))
+                  for a, b in spans for lo, hi in merged)
+    if not (spans and 0 < busy_ns <= span_ns):
+        raise AssertionError(f"profile: {len(spans)} processor spans of "
+                             f"{span_ns} ns, {busy_ns} ns busy")
+    return {"idle_share": 1.0 - busy_ns / span_ns,
+            "processor_s": span_ns / 1e9, "device_busy_s": busy_ns / 1e9}
+
+
+@contextlib.contextmanager
+def _first_inputs(store: dict, *names: str):
+    """The arguments of the first call of each of ops/warp.py's kernel
+    wrappers `names`, kept cloned in store[name]; the calls go through."""
+    wrappers = {name: getattr(warp, name) for name in names}
+
+    def recorder(name):
+        def record(*args):
+            if name not in store:
+                store[name] = [a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args]
+            return wrappers[name](*args)
+        return record
+
+    for name in names:
+        setattr(warp, name, recorder(name))
+    try:
+        yield
+    finally:
+        for name, wrapper in wrappers.items():
+            setattr(warp, name, wrapper)
+
+
+def _batch4_kernels_equal_plain(inputs: dict) -> dict:
+    """Kernels 1 and 2 against their plain versions on the inputs of the
+    first window of a batch-4 group: torch.equal."""
+    src, x, y = inputs["plane_sweep_sample"]
+    vol, *coords = inputs["exact_z_resample"]
+    pairs = {"plane_sweep_warp": (
+                 lambda: plane_warp.plane_sweep_sample(src, x, y),
+                 lambda: plane_warp.plane_sweep_sample_plain(src, x, y)),
+             "frustum_warp_exact_z": (
+                 lambda: plane_warp_exact_z.exact_z_resample(vol, *coords),
+                 lambda: resample_exact_z(vol, *coords))}
+    out = {}
+    for name, (kern, plain) in pairs.items():
+        got = kern()
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version at the batch-4 shape")
+        out[name] = {"shape": list(got.shape), "dtype": str(got.dtype),
+                     "bit_equal": True}
+    return out
+
+
+def phase_scene_batch(rows: list[dict]) -> None:
+    """`--scan --scene-batch` on both eval tools at the flagship width
+    (256x320, D = 64, ResNet-50, random weights from seed 0) over five
+    ScanNet-layout scenes of unequal lengths (--datapath): (a)
+    eval_estm.run, (b) eval_joint.run, each at --scene-batch 1 and 4 (a
+    group of four and a partial group of one) in turns (1, 4, 4, 1),
+    float32 and bf16; the last two turns run under torch.profiler for the
+    device's idle share inside the processor calls. Checks: the batch-4
+    maps against the batch-1 maps within 1e-3 (bf16: within twice their
+    batch-1 maps' distance from float32's); one scene's scan maps against
+    an ESTMRunner / JointRunner on the frames the tool read, within 1e-3;
+    launches of a group equal to one scene's (the batch folds into each
+    launch); kernels 1 and 2 bit-equal to their plain versions on the
+    batch-4 inputs of one window. Reports frames (targets) per second
+    inside the processor calls from the two turns without the profiler,
+    and peak memory. Every kernel's count is set to 0 just before each
+    tool run and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scenes_") as root:
+        _write_scenes(root)
+        common = ["--datapath", root, "--frame-interval", "1",
+                  "--height", str(HEIGHT), "--width", str(WIDTH),
+                  "--ndepths", str(NDEPTHS), "--depth-min", str(DEPTH_MIN),
+                  "--depth-max", str(DEPTH_MAX), "--resnet", "50", "--scan",
+                  "--device", "cuda", "--seed", "0"]
+
+        def tool_run(tool):
+            def run(batch, dtype):
+                args = tool.parse_args(common + [
+                    "--scene-batch", str(batch),
+                    *(["--bf16"] if dtype == "bfloat16" else [])])
+                return tool.run(args, keep_maps=True)
+            return run
+
+        stride = SEQ_LENGTH - 2
+        estm_windows = [n - LWINDOW + 1 for n in SCAN_SCENE_FRAMES]
+        joint_windows = [len(range(0, n - SEQ_LENGTH, stride))
+                         for n in SCAN_SCENE_FRAMES]
+
+        def groups(counts, batch):
+            return [max(counts[i:i + batch])
+                    for i in range(0, len(counts), batch)]
+
+        def estm_expected(batch):  # one launch per window step of a group
+            w = groups(estm_windows, batch)
+            return {"plane_sweep_warp": sum(w),
+                    "frustum_warp_exact_z": sum(n - 1 for n in w)}
+
+        def joint_expected(batch):  # EST: one warp per target
+            w = groups(joint_windows, batch)
+            return {"plane_sweep_warp": sum(w),
+                    "frustum_warp_exact_z": sum((n - 1) * stride
+                                                for n in w)}
+
+        out = {"scene_frames": list(SCAN_SCENE_FRAMES)}
+        f32_maps = {}  # each protocol's float32 batch-1 maps
+        for protocol, run, expected, units in (
+                ("estm", tool_run(eval_estm), estm_expected,
+                 sum(estm_windows)),
+                ("joint", tool_run(eval_joint), joint_expected,
+                 stride * sum(joint_windows))):
+            for dtype in ("float32", "bfloat16"):
+                suffix = "" if dtype == "float32" else "_bf16"
+                runs = {1: [], SCENE_BATCH: []}
+                first, inputs, idle = {}, {}, {}
+                for turn, batch in enumerate((1, SCENE_BATCH, SCENE_BATCH,
+                                              1)):
+                    path = (f"scan_{protocol}{suffix}" if batch == 1 else
+                            f"scene_batch_{protocol}{suffix}")
+                    profiled = turn >= 2
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset_counts()
+                    capture = (_first_inputs(inputs, "plane_sweep_sample",
+                                             "exact_z_resample")
+                               if turn == 1 else contextlib.nullcontext())
+                    prof = (profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                            if profiled else contextlib.nullcontext())
+                    t0 = time.perf_counter()
+                    with capture, prof, (_processor_spans() if profiled
+                                         else contextlib.nullcontext()):
+                        res = run(batch, dtype)
+                    wall = time.perf_counter() - t0
+                    launches, bf16 = _launched(path, dtype, expected(batch))
+                    if profiled:
+                        idle[batch] = {**_idle_share(prof),
+                                       "per_s": units / sum(res["times"])}
+                        continue
+                    runs[batch].append(units / sum(res["times"]))
+                    first[batch] = {
+                        "maps": np.stack(res["maps"]),
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(),
+                        "wall_s": wall, "launches": launches}
+                    for row in rows:
+                        row["launches_by_path"][path] = launches[row["name"]]
+                        if dtype == "bfloat16":
+                            row["bf16"]["launches_by_path"][path] = bf16[
+                                row["name"]]
+                one, four = first[1].pop("maps"), first[SCENE_BATCH].pop(
+                    "maps")
+                err = float(np.abs(four - one).max())
+                # float32: 1e-3; bf16: twice the bf16 maps' own distance
+                # from the float32 ones (bf16 rounds at other places
+                # when cuDNN picks another algorithm at another batch)
+                if dtype == "float32":
+                    f32_maps[protocol] = one
+                tol = (SCENE_BATCH_TOL if dtype == "float32" else
+                       2 * float(np.abs(one - f32_maps[protocol]).max()))
+                if not (len(one) == len(four) and err <= tol):
+                    raise AssertionError(f"{protocol}{suffix}: scene batch "
+                                         f"4 vs 1 max abs err {err} > {tol}")
+                entry = {
+                    "per_s_batch1": runs[1][0],
+                    "per_s_batch4": runs[SCENE_BATCH][0],
+                    "speedup_batch4": runs[SCENE_BATCH][0] / runs[1][0],
+                    "batch4_vs_batch1_max_abs_err": err,
+                    "batch4_vs_batch1_tol": tol,
+                    "batch1": first[1], "batch4": first[SCENE_BATCH],
+                    "kernels_at_batch4": _batch4_kernels_equal_plain(inputs),
+                    "idle_share_batch1": idle[1]["idle_share"],
+                    "idle_share_batch4": idle[SCENE_BATCH]["idle_share"],
+                    "profiled": idle}
+                if dtype == "float32":
+                    entry["against_runner_max_abs_err"] = (
+                        _scan_against_runner(protocol, four, common))
+                out[f"{protocol}{suffix}"] = entry
+        log("scene_batch", unit_per_s={"estm": "frames", "joint": "targets"},
+            **out, seconds=time.perf_counter() - start,
+            nvidia_smi=nvidia_smi())
+    torch.cuda.empty_cache()
+
+
+def _scan_against_runner(protocol: str, maps: np.ndarray,
+                         common: list) -> float:
+    """The batch-4 scan maps of the first scene against a runner streaming
+    the frames the tool read for it (the same seed-0 model): max |Δ|,
+    within 1e-3."""
+    args = eval_estm.parse_args(common)
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50), seed=0)
+    if protocol == "estm":
+        _, frames = next(eval_estm.scenes(args))
+        runner = ESTMRunner(model, HEIGHT, WIDTH, LWINDOW, MEMORY,
+                            output_scales=SERVING_SCALES, device="cuda")
+        ref = np.stack([out[0].cpu().numpy() for f in frames if (
+            out := runner.push_frame(f["img"], f["cam_pose"],
+                                     f["cam_intr"])) is not None])
+    else:
+        wds = WindowEvalDataset(args.datapath, HEIGHT, WIDTH,
+                                seq_length=SEQ_LENGTH, frame_interval=1,
+                                scannet_layout=True)
+        wds.reset("scene0000_00")
+        runner = eval_joint.JointRunner(model, device="cuda")
+        ref = np.stack([runner.run_window(
+            wds[i]["imgs"], wds[i]["cam_poses"], wds[i]["cam_intr"])[0][0][
+                :, list(SERVING_SCALES)].cpu().numpy()
+            for i in range(len(wds))])
+    got = maps[:len(ref)]
+    err = float(np.abs(got - ref).max())
+    if not (got.shape == ref.shape and err <= SCENE_BATCH_TOL):
+        raise AssertionError(f"{protocol}: scan maps vs runner {err}")
+    return err
+
+
 def main() -> None:
     dev_info = phase_device()
     phase_build()
@@ -2468,6 +2953,8 @@ def main() -> None:
     phase_joint_path(rows)
     phase_serving(rows)
     phase_bf16_paths(rows)
+    phase_senet_path(rows)
+    phase_scene_batch(rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         train_ckpt = os.path.join(tmp, "ckpt")
         train_ms = phase_train_path(rows, train_ckpt)

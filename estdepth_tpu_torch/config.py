@@ -24,6 +24,9 @@ class ModelConfig:
     depth_min: float = 0.01
     depth_max: float = 10.0
     resnet: int = 50
+    # matching encoder family (model_hybrid.py:22 "featureNet: psm or
+    # senet"): "psm" (models/psm.py) or "senet" (models/senet.py)
+    feature_net: str = "psm"
     est_transformer: bool = True
     frustum_mode: str = "plane_mix_exact_z"
     # targets fused in the reference's order, each seeing the already fused
@@ -49,6 +52,25 @@ class ModelConfig:
     @property
     def depth_interval(self) -> float:
         return (self.depth_max - self.depth_min) / (self.ndepths - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline settings (reference data/scannet.py,
+    general_eval*.py)."""
+
+    height: int = 256
+    width: int = 320
+    n_frames: int = 5  # training window length (train_hybrid.py defaults)
+    frame_interval: int = 10  # every 10th frame (data/scannet.py:258)
+    # ScanNet default intrinsics at 640x480 (data/scannet.py:83-87)
+    fx: float = 577.870605
+    fy: float = 577.870605
+    cx: float = 319.5
+    cy: float = 239.5
+    depth_min: float = 0.01
+    depth_max: float = 10.0
+    min_valid_ratio: float = 0.5  # >= 50% valid depth (scannet.py:147-149)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +106,26 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """ESTM streaming protocol (eval_hybrid_seq.py:70)."""
+    """Evaluation protocol (eval_hybrid.py:76-78, eval_hybrid_seq.py:70),
+    with the eval tools' frame size."""
 
     height: int = 256
     width: int = 320
-    lwindow: int = 3
-    memory_size: int = 2
+    seq_length: int = 5  # Joint window
+    lwindow: int = 3  # ESTM local window
+    memory_size: int = 2  # ESTM FIFO memory entries
+    eval_depth_min: float = 0.3  # scoring valid range (metric.py:4)
+    eval_depth_max: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The four settings groups together (the JAX package's Config)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

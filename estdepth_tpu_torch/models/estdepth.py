@@ -5,7 +5,9 @@ Given V >= 3 frames with poses and intrinsics it predicts full-resolution
 depth of the V-2 middle ("target") frames at 4 scales, optionally fusing an
 ESTMemory of past key/value volumes (ESTM streaming). All (target,
 neighbour) plane-sweep warps run as one folded warp and one folded conv
-stack. The module tree carries the reference's names (`matchingFeature`,
+stack. The matching encoder is `cfg.feature_net`'s: PSMFeatureNet ("psm") or
+SEFeatureNet ("senet", whose 1/4-scale map is used). The module tree
+carries the reference's names (`matchingFeature`,
 `semanticFeature.encoder`, `CostRegNet`, `pre0/1/2`), so its state_dict is
 a reference checkpoint and the other way round.
 
@@ -36,6 +38,7 @@ from estdepth_tpu_torch.models.layers import conv_bn, init_weights
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.models.psm import PSMFeatureNet
 from estdepth_tpu_torch.models.resnet import ResNetEncoder
+from estdepth_tpu_torch.models.senet import SEFeatureNet
 from estdepth_tpu_torch.ops.geometry import (
     camera_projection, scale_intrinsics,
 )
@@ -60,7 +63,13 @@ class DepthNetHybrid(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        self.matchingFeature = PSMFeatureNet()
+        if cfg.feature_net == "psm":
+            self.matchingFeature = PSMFeatureNet()
+        elif cfg.feature_net == "senet":
+            self.matchingFeature = SEFeatureNet()
+        else:
+            raise ValueError(f"feature_net must be 'psm' or 'senet', got "
+                             f"{cfg.feature_net!r}")
         self.semanticFeature = ResNetEncoder(cfg.resnet)
         self.CostRegNet = DepthHybridDecoder(
             self.semanticFeature.num_ch_enc, ndepths=cfg.ndepths,
@@ -105,7 +114,10 @@ class DepthNetHybrid(nn.Module):
 
     def _matching(self, imgs: torch.Tensor) -> torch.Tensor:
         x = _normalize_images(imgs, self.compute_dtype).permute(0, 3, 1, 2)
-        return self.matchingFeature(x).permute(0, 2, 3, 1)
+        feats = self.matchingFeature(x)
+        if isinstance(feats, tuple):  # SEFeatureNet: (1/2, 1/4) maps
+            feats = feats[-1]
+        return feats.permute(0, 2, 3, 1)
 
     def compute_matching(self, imgs: torch.Tensor) -> torch.Tensor:
         """Stride-4 matching features [N, H/4, W/4, 32] (channels-last) of

@@ -47,6 +47,14 @@ class Conv3d(nn.Conv3d):
     forward = _conv_in_input_dtype
 
 
+class Linear(nn.Linear):
+    """nn.Linear in its input's dtype; float32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm computed in float32, returned in its input's dtype."""
 
@@ -161,14 +169,15 @@ def he_conv(conv: nn.Module) -> nn.Module:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's random init: conv kernels truncated-normal
-    he-normal (ConvBN) or lecun-normal (plain convs), biases 0; BatchNorm
+    he-normal (ConvBN) or lecun-normal (plain convs and dense layers),
+    biases 0; BatchNorm
     scale 1 (0 under zero_bn_scale), bias 0, running mean 0 and var 1;
     GroupNorm scale 1, bias 0. The numbers differ from JAX's (another
     generator); the scheme is the same, which keeps a full-depth
     random-weight forward finite."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 scale = 2.0 if getattr(m, "he_init", False) else 1.0
                 std = math.sqrt(scale / fan_in) / _TRUNC_STD

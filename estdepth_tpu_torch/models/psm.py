@@ -84,16 +84,22 @@ class PSMFeatureNet(nn.Module):
         x = self.layer1(x)
         raw = self.layer2(x)
         skip = self.layer4(self.layer3(raw))
-        h, w = skip.shape[2:]
-        branches = []
-        for i, pool in enumerate(self.POOLS):
-            # clamp the window so inputs below the reference resolution
-            # still pool to >= 1x1 (psm.py:89; identical at 64x80 and up)
-            win = (min(pool, h), min(pool, w))
-            b = F.avg_pool2d(skip, win, win)
-            b = getattr(self, f"branch{i + 1}")(b)
-            branches.append(resize_bilinear(b, h, w))
-        # reference concat order: raw, skip, branch4, branch3, branch2,
-        # branch1 (psm.py:97)
-        feat = torch.cat([raw, skip] + branches[::-1], 1)  # 320 channels
-        return self.lastconv(feat)
+        return self.lastconv(pyramid(self, raw, skip))  # from 320 channels
+
+
+def pyramid(net: nn.Module, raw: torch.Tensor,
+            skip: torch.Tensor) -> torch.Tensor:
+    """The spatial-pyramid head's input: `skip` average-pooled at the four
+    windows of `net.POOLS`, each through `net.branch1..4` and resized back,
+    concatenated in the reference's order raw, skip, branch4, branch3,
+    branch2, branch1 (psm.py:97)."""
+    h, w = skip.shape[2:]
+    branches = []
+    for i, pool in enumerate(net.POOLS):
+        # clamp the window so inputs below the reference resolution still
+        # pool to >= 1x1 (psm.py:89; identical at 64x80 and up)
+        win = (min(pool, h), min(pool, w))
+        b = F.avg_pool2d(skip, win, win)
+        b = getattr(net, f"branch{i + 1}")(b)
+        branches.append(resize_bilinear(b, h, w))
+    return torch.cat([raw, skip] + branches[::-1], 1)

@@ -4,12 +4,14 @@ reference eval_hybrid_seq.py).
     python -m estdepth_tpu_torch.tools.eval_estm --synthetic
     python -m estdepth_tpu_torch.tools.eval_estm --datapath DIR
         [--testlist FILE] [--eval-dataset scannet|7scenes] [--ckpt PATH]
-        [--outdir DIR --save-maps | --reference-layout] [--scan]
+        [--outdir DIR --save-maps | --reference-layout]
+        [--scan [--scene-batch N]]
 
 Per scene, every --frame-interval-th frame with a finite pose (from
 --start-index) streams through ESTMRunner (lwindow 3, memory 2 by
-default), or with --scan through the chunked SequenceProcessor, and each
-window yields the depth of its centre frame. That depth is scored against
+default), or with --scan through the chunked SequenceProcessor, each
+group of --scene-batch scenes in one batched call, and each window yields
+the depth of its centre frame. That depth is scored against
 the frame's ground truth at the GT's own resolution (the prediction is
 resized to it, then eval/metric_offline.compute_errors), and with
 --save-maps written as float16 `{scene}_{idx:06d}_depth.npy` (refined,
@@ -271,37 +273,48 @@ def run_scene(runner: ESTMRunner, frames, args, outdir=None, scene="",
     return res
 
 
-def run_scene_scan(proc: SequenceProcessor, frames, args, outdir=None,
-                   scene="", keep_maps: bool = False) -> dict:
-    """The same scene through the chunked processor: identical maps, one
-    fetch per chunk; every frame is credited the scene's mean time."""
-    res = new_result()
-    start = time.perf_counter()
-    frames = list(timed_frames(frames, res["host"]))
+def read_scan_scene(frames, args, host: dict):
+    """A scene's frames for --scan, read in full (the time added to
+    host["read"]) and cut to --max-frames outputs; None when fewer than
+    lwindow remain."""
+    frames = list(timed_frames(frames, host))
     if args.max_frames:
         frames = frames[:args.max_frames + args.lwindow - 1]
-    if len(frames) < args.lwindow:
-        return res
+    return frames if len(frames) >= args.lwindow else None
+
+
+def run_scenes_scan(proc: SequenceProcessor, group: list, args, outdir=None,
+                    keep_maps: bool = False) -> dict:
+    """A group of scenes [(name, frames)] through one
+    SequenceProcessor.process_scenes call (the batch axis never mixes, so
+    each scene's maps are its streaming maps), then each scene's maps
+    scored and saved as in streaming. Every output frame of
+    the group is credited the group's mean time."""
+    res = new_result()
+    start = time.perf_counter()
     t0 = time.perf_counter()
-    depths = proc.process_scene(
+    results = proc.process_scenes([(
         np.stack([f["img"] for f in frames]),
         np.stack([f["cam_pose"] for f in frames]).astype(np.float32),
-        frames[0]["cam_intr"])
-    res["times"] = [(time.perf_counter() - t0) / len(depths)] * len(depths)
-    for wi, d in enumerate(depths):
-        cidx = wi + args.lwindow // 2  # the window's centre frame
-        f = frames[cidx]
-        if keep_maps:
-            res["maps"].append(d)
-        t0 = time.perf_counter()
-        if f.get("dmap") is not None:
-            res["errors"].append(score(d[0], f["dmap"], f["dmask"]))
-        t1 = time.perf_counter()
-        if outdir and args.save_maps:
-            save_maps(os.path.join(outdir, f"{scene}_{cidx:06d}"), d[0],
-                      d[1], args.depth_min, args.depth_max)
-        res["host"]["score"] += t1 - t0
-        res["host"]["save"] += time.perf_counter() - t1
+        frames[0]["cam_intr"]) for _, frames in group])
+    n_total = sum(len(d) for d in results)
+    res["times"] = [(time.perf_counter() - t0) / n_total] * n_total
+    for (scene, frames), depths in zip(group, results):
+        print(f"{scene}: {len(depths)} windows (scan batch of {len(group)})")
+        for wi, d in enumerate(depths):
+            cidx = wi + args.lwindow // 2  # the window's centre frame
+            f = frames[cidx]
+            if keep_maps:
+                res["maps"].append(d)
+            t0 = time.perf_counter()
+            if f.get("dmap") is not None:
+                res["errors"].append(score(d[0], f["dmap"], f["dmask"]))
+            t1 = time.perf_counter()
+            if outdir and args.save_maps:
+                save_maps(os.path.join(outdir, f"{scene}_{cidx:06d}"), d[0],
+                          d[1], args.depth_min, args.depth_max)
+            res["host"]["score"] += t1 - t0
+            res["host"]["save"] += time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - start
     return res
 
@@ -356,15 +369,31 @@ def run(args, keep_maps: bool = False) -> dict:
     if args.outdir:
         os.makedirs(args.outdir, exist_ok=True)
     total = new_result()
+    group = []  # --scan: scenes queued for one process_scenes call
+
+    def flush():
+        add_result(total, run_scenes_scan(proc, group, args, args.outdir,
+                                          keep_maps))
+        group.clear()
+
     for name, frames in scenes(args):
-        if args.scan:
-            res = run_scene_scan(proc, frames, args, args.outdir, name,
-                                 keep_maps)
-        else:
+        if not args.scan:
             res = run_scene(runner, frames, args, args.outdir, name,
                             keep_maps)
-        add_result(total, res)
-        print(f"{name}: {len(res['times'])} frames")
+            add_result(total, res)
+            print(f"{name}: {len(res['times'])} frames")
+            continue
+        t0 = time.perf_counter()
+        frames = read_scan_scene(frames, args, total["host"])
+        total["seconds"] += time.perf_counter() - t0
+        if frames is None:
+            print(f"{name}: 0 windows (fewer frames than the window)")
+            continue
+        group.append((name, frames))
+        if len(group) == args.scene_batch:
+            flush()
+    if group:  # the partial last group, at its own size
+        flush()
     return total
 
 
@@ -459,6 +488,13 @@ def parse_args(argv=None):
                         "(the same maps as streaming)")
     p.add_argument("--chunk", type=int, default=16,
                    help="frames per chunk with --scan")
+    p.add_argument("--scene-batch", type=int, default=1,
+                   help="with --scan: evaluate this many independent scenes "
+                        "per batched SequenceProcessor call (the same maps "
+                        "as --scene-batch 1). Scenes are grouped as they "
+                        "are read; the partial last group runs at its own "
+                        "size (the JAX tool pads it to avoid a recompile, "
+                        "which PyTorch does not have)")
     p.add_argument("--fetch-half", action="store_true",
                    help="fetch the two scored maps in bfloat16 instead of "
                         "float32: half the device-to-host copy (the saved "

@@ -6,7 +6,7 @@ reference eval_hybrid.py).
     python -m estdepth_tpu_torch.tools.eval_joint --datapath DIR
         [--testlist FILE] [--eval-dataset scannet|7scenes] [--ckpt PATH]
         [--outdir DIR] [--save-maps] [--save-probs] [--eval-all]
-        [--keyframe-list FILE] [--max-windows N] [--scan]
+        [--keyframe-list FILE] [--max-windows N] [--scan [--scene-batch N]]
 
 Windows of --seq-length frames (5), spaced --frame-interval frames apart,
 advance by seq_length-2 frames so their targets tile the video: 5 frames
@@ -16,8 +16,10 @@ detached key/value volume threads to the next window as a 1-entry EST
 memory (eval_hybrid.py:229-243); the first window runs without EST. With
 --scan the same chain runs through eval/sequence.make_joint_processor: the
 scene is uploaded once and the matching features of every frame are
-computed once; a scene whose windows are not a gapless grid, --eval-all,
---keyframe-list and --save-probs fall back to the window loop.
+computed once, and --scene-batch N scenes go through one batched call; a
+scene whose windows are not a gapless grid takes the window loop and
+stays out of the group, and --eval-all, --keyframe-list and --save-probs
+fall back to the window loop.
 --keyframe-list evaluates independent windows around listed (scene,
 index) keyframes, with no memory between them.
 
@@ -164,25 +166,44 @@ def eval_windows(runner: JointRunner, windows, name: str, args, outdir=None,
     return res
 
 
-def scan_scene(proc, seq: dict, gt_fn, name: str, args, outdir=None,
-               keep_maps: bool = False) -> dict:
-    """The chain of one scene through make_joint_processor. seq: imgs
-    [T, H, W, 3], cam_poses [T, 4, 4], cam_intr [3, 3], n_windows (as
-    WindowEvalDataset.sequence gives it); gt_fn(k) -> (gt, mask) or None
-    for sampled frame k. One time entry for the whole chain."""
+def scan_scenes(proc, group: list, args, outdir=None,
+                keep_maps: bool = False) -> dict:
+    """A group of scenes through one make_joint_processor call.
+
+    group: [(name, seq, gt_fn)] with seq as WindowEvalDataset.sequence
+    gives it (imgs [T, H, W, 3], cam_poses [T, 4, 4], cam_intr [3, 3],
+    n_windows) and gt_fn(k) -> (gt, mask) or None for sampled frame k.
+    Each scene's frames are cut or padded to the group's largest window
+    count (the last frame repeated) and the padded windows' outputs
+    dropped; the batch axis never mixes, so each scene's maps are its own
+    chain's. One time entry for the whole group."""
     res = new_result()
     start = time.perf_counter()
     stride = args.seq_length - 2
-    t = (seq["n_windows"] - 1) * stride + args.seq_length
-    depths = proc(seq["imgs"][None, :t], seq["cam_poses"][None, :t],
-                  seq["cam_intr"][None])[0].cpu().numpy()
-    res["times"].append(time.perf_counter() - start)
-    for wi, maps in enumerate(depths):  # [T, 2, H, W] per window
-        _score_and_save(res, maps, None, [
-            gt_fn(wi * stride + 1 + ti) for ti in range(stride)], name, wi,
-            args, outdir)
-        if keep_maps:
-            res["maps"].append(maps)
+    nws = [seq["n_windows"] for _, seq, _ in group]
+    t = (max(nws) - 1) * stride + args.seq_length
+
+    def pad_t(x):
+        x = x[:t]
+        return np.concatenate([x, np.repeat(x[-1:], t - len(x), 0)])
+
+    depths = proc(np.stack([pad_t(seq["imgs"]) for _, seq, _ in group]),
+                  np.stack([pad_t(seq["cam_poses"]) for _, seq, _ in group]),
+                  np.stack([seq["cam_intr"] for _, seq, _ in group])
+                  ).cpu().numpy()  # [B, max(nws), T, 2, H, W]
+    dt = time.perf_counter() - start
+    res["times"].append(dt)
+    n_targets = sum(nws) * stride
+    print(f"scan group of {len(group)}: {n_targets} target frames in "
+          f"{dt:.1f}s ({n_targets / dt:.2f} targets/s, program "
+          f"windows={max(nws)})")
+    for (name, _, gt_fn), scene, nw in zip(group, depths, nws):
+        for wi, maps in enumerate(scene[:nw]):  # [T, 2, H, W] per window
+            _score_and_save(res, maps, None, [
+                gt_fn(wi * stride + 1 + ti) for ti in range(stride)], name,
+                wi, args, outdir)
+            if keep_maps:
+                res["maps"].append(maps)
     res["seconds"] = time.perf_counter() - start
     return res
 
@@ -207,8 +228,8 @@ def _synthetic(runner, proc, args, keep_maps: bool) -> dict:
         wi, ti = divmod(k - 1, stride)
         return samples[wi]["dmaps"][0, ti], samples[wi]["dmasks"][0, ti]
 
-    return scan_scene(proc, seq, gt_fn, "synthetic", args, args.outdir,
-                      keep_maps)
+    return scan_scenes(proc, [("synthetic", seq, gt_fn)], args, args.outdir,
+                       keep_maps)
 
 
 def run(args, keep_maps: bool = False) -> dict:
@@ -255,6 +276,13 @@ def run(args, keep_maps: bool = False) -> dict:
             frame_interval=args.frame_interval,
             scannet_layout=args.eval_dataset == "scannet",
             eval_all=args.eval_all)
+        group = []  # --scan: scenes queued for one processor call
+
+        def flush():
+            add_result(total, scan_scenes(proc, group, args, args.outdir,
+                                          keep_maps))
+            group.clear()
+
         for scene, seq in scene_list(args):
             name = scene if seq is None else f"{scene}_{seq}"
             if args.save_maps and maps_exist(args.outdir, name):
@@ -263,18 +291,20 @@ def run(args, keep_maps: bool = False) -> dict:
             ds.reset(scene, seq)
             sq = ds.sequence(args.max_windows) if args.scan else None
             if sq is not None and sq["window_stride"] == args.seq_length - 2:
-                res = scan_scene(proc, sq,
-                                 lambda k, p=sq["dmap_paths"]: ds.read_gt(
-                                     p[k]),
-                                 name, args, args.outdir, keep_maps)
-            else:
-                if args.scan:
-                    print(f"{name}: window chain is not a gapless grid; "
-                          "loop fallback")
-                res = eval_windows(runner, (ds[i] for i in range(len(ds))),
-                                   name, args, args.outdir, keep_maps)
+                group.append((name, sq, lambda k, p=sq["dmap_paths"]:
+                              ds.read_gt(p[k])))
+                if len(group) == args.scene_batch:
+                    flush()
+                continue
+            if args.scan:
+                print(f"{name}: window chain is not a gapless grid; "
+                      "loop fallback")
+            res = eval_windows(runner, (ds[i] for i in range(len(ds))),
+                               name, args, args.outdir, keep_maps)
             add_result(total, res)
             print(f"{name}: {len(res['errors'])} target frames")
+        if group:  # the partial last group, at its own size
+            flush()
     return total
 
 
@@ -344,6 +374,13 @@ def parse_args(argv=None):
                         "probability maps")
     p.add_argument("--scan", action="store_true",
                    help="the whole chain through make_joint_processor")
+    p.add_argument("--scene-batch", type=int, default=1,
+                   help="with --scan: evaluate this many independent scenes "
+                        "per make_joint_processor call, each padded to the "
+                        "group's longest window chain (the batch axis never "
+                        "mixes). The partial last group runs at its own "
+                        "size (the JAX tool pads it to avoid a recompile, "
+                        "which PyTorch does not have)")
     add_model_flags(p)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights without --ckpt")

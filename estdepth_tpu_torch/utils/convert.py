@@ -38,7 +38,8 @@ def _torch_conv_kernel(k: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {k.ndim}")
 
 
-# JAX PSM module names -> the reference's torch name fragments
+# JAX PSM module names -> the reference's torch name fragments; the
+# SEFeatureNet's stem, branches and head carry the same names
 _PSM_NAMES = {
     "firstconv_0": "firstconv.0", "firstconv_1": "firstconv.2",
     "firstconv_2": "firstconv.4",
@@ -48,106 +49,167 @@ _PSM_NAMES = {
 }
 
 
+def _emit(out: dict, prefix: str, node, stat_node, kind: str) -> None:
+    """One JAX conv ("conv"), BatchNorm ("bn") or GroupNorm ("gn") under
+    the torch prefix."""
+    if kind == "conv":
+        out[f"{prefix}.weight"] = _torch_conv_kernel(np.asarray(node["kernel"]))
+        if "bias" in node:
+            out[f"{prefix}.bias"] = np.asarray(node["bias"])
+    else:
+        out[f"{prefix}.weight"] = np.asarray(node["scale"])
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+        if kind == "bn" and stat_node is not None:
+            out[f"{prefix}.running_mean"] = np.asarray(stat_node["mean"])
+            out[f"{prefix}.running_var"] = np.asarray(stat_node["var"])
+
+
+def _convbn(out: dict, base: str, node, stat_node) -> None:
+    """A JAX ConvBN -> the torch `nn.Sequential(conv, bn)` `{base}.0/.1`."""
+    _emit(out, f"{base}.0", node["conv"], None, "conv")
+    _emit(out, f"{base}.1", node["bn"],
+          stat_node.get("bn") if stat_node else None, "bn")
+
+
+def _block(out: dict, base: str, node, stat_node) -> None:
+    """A bottleneck's JAX tree -> `{base}.conv{i}/.bn{i}`,
+    `.se_module.fc1/.fc2` and `.downsample.0/.1`: the names of
+    torchvision's ResNet blocks and of the reference SENet's (and
+    tests/test_senet.py's mapping). An SE block's conv2 is a plain conv
+    with its own bn2; every other conv{i} is a ConvBN."""
+    stat_node = stat_node or {}
+    for i in "123":
+        key = f"conv{i}"
+        if key not in node:
+            continue
+        if "kernel" in node[key]:
+            _emit(out, f"{base}.{key}", node[key], None, "conv")
+            _emit(out, f"{base}.bn{i}", node[f"bn{i}"],
+                  stat_node.get(f"bn{i}"), "bn")
+        else:
+            _emit(out, f"{base}.{key}", node[key]["conv"], None, "conv")
+            _emit(out, f"{base}.bn{i}", node[key]["bn"],
+                  stat_node.get(key, {}).get("bn"), "bn")
+    for fc in ("fc1", "fc2") if "se" in node else ():
+        _emit(out, f"{base}.se_module.{fc}", node["se"][fc], None, "conv")
+    if "downsample" in node:
+        _convbn(out, f"{base}.downsample", node["downsample"],
+                stat_node.get("downsample"))
+
+
+def _tensors(out: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32)
+            for k, v in out.items()}
+
+
 def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
     """JAX {'params', 'batch_stats'} of DepthNetHybrid -> the port's
     state_dict (float32 tensors, without BatchNorm's num_batches_tracked,
-    which load_state_dict fills in)."""
+    which load_state_dict fills in). Either matching encoder: PSM's blocks
+    or SEFeatureNet's SE blocks."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict[str, np.ndarray] = {}
 
-    def emit(prefix, node, stat_node, kind):
-        if kind == "conv":
-            out[f"{prefix}.weight"] = _torch_conv_kernel(
-                np.asarray(node["kernel"]))
-            if "bias" in node:
-                out[f"{prefix}.bias"] = np.asarray(node["bias"])
-        else:  # "bn" or "gn"
-            out[f"{prefix}.weight"] = np.asarray(node["scale"])
-            out[f"{prefix}.bias"] = np.asarray(node["bias"])
-            if kind == "bn" and stat_node is not None:
-                out[f"{prefix}.running_mean"] = np.asarray(stat_node["mean"])
-                out[f"{prefix}.running_var"] = np.asarray(stat_node["var"])
-
-    def convbn(base, node, stat_node):
-        emit(f"{base}.0", node["conv"], None, "conv")
-        emit(f"{base}.1", node["bn"],
-             stat_node.get("bn") if stat_node else None, "bn")
-
-    # matching feature (PSM)
+    # matching feature (PSM or SEFeatureNet)
     ms = stats.get("matching_feature", {})
     for name, node in params.get("matching_feature", {}).items():
         snode = ms.get(name, {})
         m = re.match(r"layer(\d+)_(\d+)$", name)
-        if m:
+        if m and "se" in node:
+            _block(out, f"matchingFeature.layer{m.group(1)}.{m.group(2)}",
+                   node, snode)
+        elif m:
             base = f"matchingFeature.layer{m.group(1)}.{m.group(2)}"
-            convbn(f"{base}.conv1.0", node["conv1"], snode.get("conv1"))
-            convbn(f"{base}.conv2", node["conv2"], snode.get("conv2"))
+            _convbn(out, f"{base}.conv1.0", node["conv1"], snode.get("conv1"))
+            _convbn(out, f"{base}.conv2", node["conv2"], snode.get("conv2"))
             if "downsample" in node:
-                convbn(f"{base}.downsample", node["downsample"],
-                       snode.get("downsample"))
+                _convbn(out, f"{base}.downsample", node["downsample"],
+                        snode.get("downsample"))
         elif name == "lastconv_1":
-            emit("matchingFeature.lastconv.2", node, None, "conv")
+            _emit(out, "matchingFeature.lastconv.2", node, None, "conv")
         elif name in _PSM_NAMES:
-            convbn(f"matchingFeature.{_PSM_NAMES[name]}", node, snode)
+            _convbn(out, f"matchingFeature.{_PSM_NAMES[name]}", node, snode)
 
     # semantic feature (torchvision resnet)
     ss = stats.get("semantic_feature", {})
     for name, node in params.get("semantic_feature", {}).items():
         snode = ss.get(name, {})
         if name == "conv1":
-            emit("semanticFeature.encoder.conv1", node["conv"], None, "conv")
-            emit("semanticFeature.encoder.bn1", node["bn"], snode.get("bn"),
-                 "bn")
+            _emit(out, "semanticFeature.encoder.conv1", node["conv"], None,
+                  "conv")
+            _emit(out, "semanticFeature.encoder.bn1", node["bn"],
+                  snode.get("bn"), "bn")
             continue
         m = re.match(r"layer(\d+)_(\d+)$", name)
         if m:
-            base = f"semanticFeature.encoder.layer{m.group(1)}.{m.group(2)}"
-            for ci in ("1", "2", "3"):
-                key = f"conv{ci}"
-                if key in node:
-                    emit(f"{base}.conv{ci}", node[key]["conv"], None, "conv")
-                    emit(f"{base}.bn{ci}", node[key]["bn"],
-                         snode.get(key, {}).get("bn"), "bn")
-            if "downsample" in node:
-                convbn(f"{base}.downsample", node["downsample"],
-                       snode.get("downsample"))
+            _block(out, f"semanticFeature.encoder.layer{m.group(1)}."
+                   f"{m.group(2)}", node, snode)
 
     # decoder
     ds = stats.get("decoder", {})
     for name, node in params.get("decoder", {}).items():
         snode = ds.get(name, {})
         if name.startswith("upconv_"):
-            convbn(f"CostRegNet.{name}.conv", node["conv"], snode.get("conv"))
+            _convbn(out, f"CostRegNet.{name}.conv", node["conv"],
+                    snode.get("conv"))
         elif name.startswith("dispconv_"):
-            emit(f"CostRegNet.{name}", node, None, "conv")
+            _emit(out, f"CostRegNet.{name}", node, None, "conv")
         elif re.match(r"dres[01]_\d$", name):
-            convbn(f"CostRegNet.{name[:5]}.{name[-1]}", node["conv"],
-                   snode.get("conv"))
+            _convbn(out, f"CostRegNet.{name[:5]}.{name[-1]}", node["conv"],
+                    snode.get("conv"))
         elif name == "dres2":
-            convbn("CostRegNet.dres2.0", node["conv"], snode.get("conv"))
+            _convbn(out, "CostRegNet.dres2.0", node["conv"],
+                    snode.get("conv"))
         elif name in ("key_layer", "value_layer"):
-            convbn(f"CostRegNet.{name}.0", node["conv"], snode.get("conv"))
+            _convbn(out, f"CostRegNet.{name}.0", node["conv"],
+                    snode.get("conv"))
         elif name.startswith("stereo_head"):
-            convbn(f"CostRegNet.{name}.0", node["conv0"]["conv"],
-                   snode.get("conv0", {}).get("conv"))
-            emit(f"CostRegNet.{name}.1", node["out"], None, "conv")
+            _convbn(out, f"CostRegNet.{name}.0", node["conv0"]["conv"],
+                    snode.get("conv0", {}).get("conv"))
+            _emit(out, f"CostRegNet.{name}.1", node["out"], None, "conv")
         elif name == "est":
             for sub in ("gate_conv", "output_conv"):
-                emit(f"CostRegNet.epipolar_transformer.{sub}", node[sub],
-                     None, "conv")
+                _emit(out, f"CostRegNet.epipolar_transformer.{sub}",
+                      node[sub], None, "conv")
             for sub in ("reset_gate_norm", "update_gate_norm",
                         "output_norm"):
-                emit(f"CostRegNet.epipolar_transformer.{sub}", node[sub],
-                     None, "gn")
+                _emit(out, f"CostRegNet.epipolar_transformer.{sub}",
+                      node[sub], None, "gn")
 
     # cost-volume aggregation
     for name in ("pre0", "pre1", "pre2"):
         if name in params:
-            convbn(name, params[name], stats.get(name, {}))
+            _convbn(out, name, params[name], stats.get(name, {}))
 
-    return {k: torch.tensor(np.asarray(v), dtype=torch.float32)
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def senet_state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
+    """JAX {'params', 'batch_stats'} of an `SENet` classifier -> the state
+    dict of the port's (models/senet.py) and the reference's SENet:
+    `layer0.convN/bnN`, `layerK.i.conv1..3/bn1..3`, `downsample.0/.1`,
+    `se_module.fc1/fc2` and `last_linear` (absent from a tree initialised
+    with features_only). The port's own copy of tests/test_senet.py's
+    mapping."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        snode = stats.get(name, {})
+        m = re.match(r"layer0_conv(\d)$", name)
+        if m:
+            i = m.group(1)
+            _emit(out, f"layer0.conv{i}", node["conv"], None, "conv")
+            _emit(out, f"layer0.bn{i}", node["bn"], snode.get("bn"), "bn")
+            continue
+        m = re.match(r"layer(\d)_(\d+)$", name)
+        if m:
+            _block(out, f"layer{m.group(1)}.{m.group(2)}", node, snode)
+        elif name == "last_linear":
+            out["last_linear.weight"] = np.transpose(np.asarray(node["kernel"]))
+            out["last_linear.bias"] = np.asarray(node["bias"])
+    return _tensors(out)
 
 
 def grads_from_jax(grads) -> dict[str, torch.Tensor]:
@@ -166,6 +228,8 @@ _REFERENCE_NAMES = re.compile("|".join(f"(?:{p}{_LEAF})" for p in (
     r"matchingFeature\.firstconv\.\d+\.\d+",
     r"matchingFeature\.layer\d+\.\d+\.conv1\.0\.\d+",
     r"matchingFeature\.layer\d+\.\d+\.(?:conv2|downsample)\.\d+",
+    r"matchingFeature\.layer\d+\.\d+\.(?:conv|bn)\d",
+    r"matchingFeature\.layer\d+\.\d+\.se_module\.fc[12]",
     r"matchingFeature\.branch\d+\.1\.\d+",
     r"matchingFeature\.lastconv\.0\.\d+",
     r"matchingFeature\.lastconv\.2",

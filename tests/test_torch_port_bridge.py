@@ -4,6 +4,8 @@
     key and value for value, and loads strictly into the port's model;
   * no module of estdepth_tpu_torch, and not chip_smoke.py, imports jax,
     flax or estdepth_tpu (an AST walk);
+  * the JAX package's config dataclasses' fields and defaults are in the
+    port's config;
   * entry points run on the CUDA device unless asked for the CPU: without
     a GPU they raise, and the kernels neither build without nvcc nor fall
     back to the plain version for a tensor that is not on the CPU;
@@ -14,6 +16,7 @@
 from __future__ import annotations
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -22,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+from estdepth_tpu import config as jax_config
 from estdepth_tpu.models import DepthNetHybrid as JaxModel
 from estdepth_tpu.utils.convert import export_state_dict
+from estdepth_tpu_torch import config as port_config
 from estdepth_tpu_torch.config import ModelConfig, resolve_device, tiny_config
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
@@ -84,11 +89,33 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "estdepth_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    assert ROOT / "estdepth_tpu_torch" / "parallel" / "mesh.py" in files
+    for walked in ("parallel/mesh.py", "models/senet.py", "ops/se3.py",
+                   "ops/image_warp.py"):
+        assert ROOT / "estdepth_tpu_torch" / walked in files, walked
     bad = [(f.relative_to(ROOT).as_posix(), name)
            for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "DataConfig",
+                                  "TrainConfig", "EvalConfig", "Config"])
+def test_config_fields_and_defaults_are_the_jax_packages(name):
+    """Each JAX config dataclass's fields exist in the port's with the
+    same defaults (the port's add its own: the warp and dtype options,
+    the eval tools' frame size)."""
+    want_cls = getattr(jax_config, name)
+    got_cls = getattr(port_config, name)
+    got = {f.name: f for f in dataclasses.fields(got_cls)}
+    for f in dataclasses.fields(want_cls):
+        assert f.name in got, f.name
+    want_obj, got_obj = want_cls(), got_cls()
+    for f in dataclasses.fields(want_cls):
+        w, g = getattr(want_obj, f.name), getattr(got_obj, f.name)
+        if dataclasses.is_dataclass(w):
+            w = {k.name: getattr(w, k.name) for k in dataclasses.fields(w)}
+            g = {k: getattr(g, k) for k in w}
+        assert g == w, (name, f.name)
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu():

@@ -670,3 +670,71 @@ def test_one_nccl_rank_matches_the_one_device_step(dev, tmp_path):
         np.testing.assert_allclose(runs["nccl"][1][k].numpy(), want.numpy(),
                                    rtol=5e-3, atol=5e-4, err_msg=k)
     assert runs["nccl"][2] == runs["one"][2] == [3, 6]
+
+
+def test_senet_stream_on_the_card_matches_cpu(dev):
+    """A small ESTM stream of the SENet model (SEFeatureNet as the matching
+    encoder) through the kernels on the card against the same model on
+    the CPU: all 4 scales within the chain tolerance 8e-3, and the
+    kernels launched once per window (the sweep) and once per EST window
+    (the exact-z warp)."""
+    from estdepth_tpu_torch.config import ModelConfig
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_stream,
+    )
+    from estdepth_tpu_torch.eval.estm import ESTMRunner
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+
+    torch.backends.cudnn.allow_tf32 = False
+    frames = list(synthetic_stream(SyntheticSceneConfig(
+        height=64, width=96, focal=80.0), 6, 0.5, 8.0))
+    for i, f in enumerate(frames):  # no coordinate on the border
+        f["cam_pose"] = f["cam_pose"] @ _pose(
+            0.0, 0.011 * i, 0.0, 0.0, 0.013 * i + 0.002).numpy()
+    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
+                      feature_net="senet")
+    outs = {}
+    for device in ("cpu", dev):
+        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
+                            device=device)
+        sweeps = plane_warp.KERNEL.launches
+        warps = plane_warp_exact_z.KERNEL.launches
+        outs[str(device)] = [
+            out.cpu() for f in frames if (out := runner.push_frame(
+                f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    assert plane_warp.KERNEL.launches == sweeps + 4
+    assert plane_warp_exact_z.KERNEL.launches == warps + 3
+    err = max((a - b).abs().max().item()
+              for a, b in zip(outs["cpu"], outs[str(dev)]))
+    assert len(outs[str(dev)]) == 4 and err < 8e-3, err
+
+
+def test_scene_batch_on_the_card_equals_one_scene_at_a_time(dev, tmp_path):
+    """Both eval tools at --scan --scene-batch 2 over three ScanNet-layout
+    scenes of 9, 12 and 7 frames (a group of two and a partial group of
+    one) against --scene-batch 1 on the card: within 1e-3 (cuDNN may pick
+    another algorithm at another batch)."""
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, pose, write_scannet_scene,
+    )
+    from estdepth_tpu_torch.tools import eval_estm, eval_joint
+
+    torch.backends.cudnn.allow_tf32 = False
+    for seed, n in enumerate((9, 12, 7)):
+        cfg = SyntheticSceneConfig(height=96, width=128, focal=115.574,
+                                   seed=seed)
+        write_scannet_scene(
+            str(tmp_path / f"scene{seed:04d}_00"), cfg,
+            [pose(cfg, i) @ _pose(0.0, 0.011 * i, 0.0, 0.0,
+                                  0.013 * i + 0.002).numpy()
+             for i in range(n)])
+    argv = ["--datapath", str(tmp_path), "--height", "64", "--width", "96",
+            "--ndepths", "8", "--resnet", "18", "--frame-interval", "1",
+            "--depth-min", "0.5", "--depth-max", "8.0", "--scan",
+            "--device", str(dev)]
+    for tool, n in ((eval_estm, 7 + 10 + 5), (eval_joint, 2 + 3 + 1)):
+        maps = [np.stack(tool.run(tool.parse_args(
+            argv + ["--scene-batch", b]), keep_maps=True)["maps"])
+            for b in ("1", "2")]
+        assert len(maps[0]) == len(maps[1]) == n
+        np.testing.assert_allclose(maps[1], maps[0], atol=1e-3, rtol=0)
