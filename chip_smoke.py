@@ -48,7 +48,7 @@ turns with the float32 model. Data-parallel training (phase
 --multihost on one NCCL rank in turns with the one-device run, float32
 and bf16 (losses, BatchNorm statistics, kernel launches per step, ms per
 step, peak memory), then two gloo ranks on the one card, each a process
-of this script (`--ddp-rank R --ddp-port P --ddp-out DIR`), driving
+of this script (`--ddp-rank R --port P --out DIR`), driving
 parallel.mesh and the trainer directly: equal losses and parameters
 across the ranks, agreement with the one-process step on both ranks'
 windows, rank 0's checkpoint loaded into a one-device model, and the
@@ -62,8 +62,16 @@ of unequal lengths at --scene-batch 1 and 4 in turns, float32 and bf16:
 the maps of batch 4 against batch 1 and against a runner, one group's
 launches against one scene's, kernels 1 and 2 bit-equal to their plain
 versions at the batch-4 shapes, frames (targets) per second, peak
-memory and the device's idle share. Every phase prints one line; any
-failure raises and exits non-zero. The last line is {"ok":
+memory and the device's idle share. The width-sharded forward (phase
+`spatial_shard`, parallel/spatial.make_spatial_window_fn at the flagship
+width): two gloo ranks on the one card, each a process of this script
+(`--spatial-rank R --port P --out DIR`) holding 160 columns, in turns
+with the one-device model: the ESTM stream with its memory carried as
+each rank's K/V columns, a 5-frame Joint window and a plane-mix window,
+the gathered maps against the one-device maps, kernels 1, 2 and 4 at
+each rank's output window against the whole launch's columns, ms per
+window, collectives, bytes, collective share and peak memory per rank.
+Every phase prints one line; any failure raises and exits non-zero. The last line is {"ok":
 true, "device": {...}}.
 
 A kernel's time is device ms per call, from runs of 20 back-to-back calls
@@ -116,6 +124,7 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.layers import convert_sync_batchnorm
+from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.models.resnet import ResNetEncoder
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
@@ -126,6 +135,9 @@ from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.parallel import mesh as parallel_mesh
 from estdepth_tpu_torch.parallel.mesh import (
     create_mesh, init_distributed, shutdown,
+)
+from estdepth_tpu_torch.parallel.spatial import (
+    WidthShards, make_spatial_window_fn, shard_bounds,
 )
 from estdepth_tpu_torch.tools import (
     eval_estm, eval_joint, export_serving, export_torch, kernel_report,
@@ -191,6 +203,11 @@ RELEASE_VERIFY_FRAMES = 4
 # data-parallel training (phase_train_ddp): steps per run, and each rank
 # process's time limit in seconds (case (b))
 DDP_STEPS, DDP_RANK_TIMEOUT = 3, 400
+# the width-sharded forward (phase_spatial_shard): ranks on the one card,
+# the ESTM stream's frames (4 windows of 3), each rank process's time
+# limit in seconds, and the gathered maps' tolerance against one device
+SPATIAL_RANKS, SPATIAL_FRAMES, SPATIAL_RANK_TIMEOUT = 2, 6, 300
+SPATIAL_TOL = 1e-3
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -829,12 +846,17 @@ def phase_geometry(dev=torch.device("cuda")) -> None:
         raise AssertionError(f"plane-sweep depth recovery {hit} < 0.8")
 
 
-def _pitched_frames(n: int):
-    """Small synthetic stream with a seeded pitch and lift on the camera
-    path, so that no warp coordinate sits exactly on the image border,
-    where float noise would decide the hard out-of-range mask."""
-    cfg = SyntheticSceneConfig(height=64, width=96, focal=80.0)
-    frames = list(synthetic_stream(cfg, n, 0.5, 8.0))
+def _pitched_frames(n: int, full_width: bool = False):
+    """Small synthetic stream (or, `full_width`, the flagship's 256x320
+    scene) with a seeded pitch and lift on the camera path, so that no
+    warp coordinate sits exactly on the image border, where float noise
+    would decide the hard out-of-range mask."""
+    if full_width:
+        frames = list(synthetic_stream(SyntheticSceneConfig(), n, DEPTH_MIN,
+                                       DEPTH_MAX))
+    else:
+        cfg = SyntheticSceneConfig(height=64, width=96, focal=80.0)
+        frames = list(synthetic_stream(cfg, n, 0.5, 8.0))
     for i, f in enumerate(frames):
         a = 0.013 * i + 0.002
         rx = np.eye(4, dtype=np.float32)
@@ -2299,6 +2321,16 @@ def _ddp_model(mesh=None):
     return model, optimizer, scheduler, step
 
 
+def _union_share(spans, t0: float, t1: float) -> float:
+    """Share of [t0, t1] covered by the union of the (start, end) spans."""
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy, end = busy + b - a, b
+    return busy / (t1 - t0)
+
+
 def ddp_rank(rank: int, port: int, out: str) -> None:
     """Case (b), one of two ranks on the one card over gloo (NCCL refuses
     two ranks on one device): parallel.mesh and the trainer driven
@@ -2355,12 +2387,7 @@ def ddp_rank(rank: int, port: int, out: str) -> None:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         times.append(t1 - t0)
-        busy, end = 0.0, t0  # union of the collectives' spans in the step
-        for a, b in sorted(spans):
-            a, b = max(a, end), min(b, t1)
-            if b > a:
-                busy, end = busy + b - a, b
-        shares.append(busy / (t1 - t0))
+        shares.append(_union_share(spans, t0, t1))
         steps.append(len(spans))
     torch.distributed.all_reduce = all_reduce
     launches = _read_counts()
@@ -2391,7 +2418,7 @@ def _ddp_two_ranks() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as out:
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--ddp-rank",
-             str(r), "--ddp-port", str(port), "--ddp-out", out],
+             str(r), "--port", str(port), "--out", out],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
         outs = []
@@ -2474,6 +2501,282 @@ def phase_train_ddp(rows: list[dict]) -> None:
     f32_stats = _ddp_one_rank(rows, "float32")
     _ddp_one_rank(rows, "bfloat16", f32_stats)
     _ddp_two_ranks()
+
+
+def _spatial_inputs(dev):
+    """The pitched full-width stream of phase_spatial_shard on `dev`:
+    imgs [1, F, H, W, 3], poses [1, F, 4, 4], intr [1, 3, 3]."""
+    frames = _pitched_frames(SPATIAL_FRAMES, full_width=True)
+    return (torch.from_numpy(np.stack([f["img"] for f in frames]))[None]
+            .to(dev), torch.from_numpy(np.stack(
+                [f["cam_pose"] for f in frames]))[None].to(dev),
+            torch.from_numpy(frames[0]["cam_intr"])[None].to(dev))
+
+
+def spatial_rank(rank: int, port: int, out: str) -> None:
+    """One of the two ranks of phase_spatial_shard on the one card over
+    gloo: make_spatial_window_fn over this rank's 160 columns, in turns
+    with the unsharded model on rank 0 (rank 1 waits at a barrier, so a
+    sharded turn starts on both ranks together). The ESTM stream (4
+    windows of 3 frames, the first without EST, a 2-entry memory carried
+    as each path's own state), a 5-frame Joint window twice, and one
+    plane-mix window with the memory; then one more ESTM and one more
+    Joint window with every collective timed (a device synchronize on
+    each side of each, which the other turns do not pay), for the share
+    of a window with a collective in flight. Writes out/rank<r>.json: per
+    sharded call its ms, collectives, bytes, peak memory and kernel
+    launches, and on the timed calls the collective share and each kind's
+    ms per call; on rank 0 the one-device ms and the gathered maps' max
+    |Δ| from the one-device maps."""
+    set_fp32_numerics()
+    dev = init_distributed(f"localhost:{port}", SPATIAL_RANKS, rank,
+                           device="cuda:0", backend="gloo")
+    mesh = create_mesh(device=dev)
+    model = DepthNetHybrid(ModelConfig(
+        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+        resnet=50), seed=0).to(dev)
+    imgs, poses, intr = _spatial_inputs(dev)
+    shards = WidthShards(mesh, WIDTH)
+    mine = shards.shard_width(imgs, 3)
+    fns = {False: make_spatial_window_fn(model, mesh),
+           True: make_spatial_window_fn(model, mesh, with_memory=True)}
+    res = {"calls": [], "one_device_ms": [], "errors": {}}
+
+    def sharded(path, frames, memory, timed=False):
+        fn = fns[memory is not None]
+        fn.stats.reset()
+        fn.stats.timed = timed
+        torch.distributed.barrier()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, state = fn(mine[:, frames], poses[:, frames], intr,
+                         *([memory] if memory is not None else []))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        call = {"path": path, "ms": 1e3 * (t1 - t0),
+                "collectives": dict(fn.stats.calls),
+                "bytes": dict(fn.stats.bytes),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": _read_counts()}
+        if timed:
+            spans = fn.stats.spans
+            call["collective_share"] = _union_share(
+                [(a, b) for _, a, b in spans], t0, t1)
+            call["ms_per_call"] = {
+                kind: 1e3 * sum(b - a for k, a, b in spans if k == kind) / n
+                for kind, n in fn.stats.calls.items()}
+        res["calls"].append(call)
+        return ({k: shards.gather_width(v, -1) for k, v in outs.items()},
+                state)
+
+    def one_device(frames, memory):
+        torch.distributed.barrier()
+        if rank != 0:
+            return None, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            outs, state = model(imgs[:, frames], poses[:, frames], intr,
+                                memory=memory, use_est=memory is not None)
+        torch.cuda.synchronize()
+        res["one_device_ms"].append(1e3 * (time.perf_counter() - t0))
+        return outs, state
+
+    def compare(name, got, want):
+        if rank == 0:
+            res["errors"].setdefault(name, []).append(max(
+                float((got[k].float() - want[k].float()).abs().max())
+                for k in want))
+
+    # the ESTM stream: one-device first in even windows, sharded in odd
+    w4 = mine.shape[3] // 4
+    memories = {"sharded": ESTMemory.create(1, MEMORY, NDEPTHS, HEIGHT // 4,
+                                            w4, device=dev),
+                "one": ESTMemory.create(1, MEMORY, NDEPTHS, HEIGHT // 4,
+                                        WIDTH // 4, device=dev)}
+    for i in range(SPATIAL_FRAMES - LWINDOW + 1):
+        frames = list(range(i, i + LWINDOW))
+        use = {k: (m if i > 0 else None) for k, m in memories.items()}
+        turns = ["one", "sharded"] if i % 2 == 0 else ["sharded", "one"]
+        outs = {}
+        for turn in turns:
+            if turn == "sharded":
+                outs[turn], state = sharded("spatial_estm", frames,
+                                            use[turn])
+            else:
+                outs[turn], state = one_device(frames, use[turn])
+            if state is not None:
+                memories[turn] = memories[turn].push(*state)
+        compare("estm", outs["sharded"], outs["one"])
+    # one 5-frame Joint window without memory: one, sharded, sharded, one
+    joint = list(range(SEQ_LENGTH))
+    for turn in ("one", "sharded", "sharded", "one"):
+        if turn == "sharded":
+            got, _ = sharded("spatial_joint", joint, None)
+        else:
+            want, _ = one_device(joint, None)
+    compare("joint", got, want)
+    # the timed turns: one steady ESTM window with the memory, one Joint
+    sharded("spatial_estm_timed", list(range(2, 2 + LWINDOW)),
+            memories["sharded"], timed=True)
+    sharded("spatial_joint_timed", joint, None, timed=True)
+    # the plane-mix frustum warp (kernel 4) with each path's memory
+    last = list(range(SPATIAL_FRAMES - LWINDOW, SPATIAL_FRAMES))
+    model.CostRegNet.frustum_mode = "plane_mix"
+    got, _ = sharded("spatial_plane_mix", last, memories["sharded"])
+    want, _ = one_device(last, memories["one"])
+    compare("plane_mix", got, want)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    shutdown()
+
+
+def _spatial_kernel_windows() -> dict:
+    """Kernels 1, 2 and 4 at each rank's output columns of the ESTM step's
+    shapes, both instances: `torch.equal` to the whole launch's columns
+    and to the plain version on the same window coordinates."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    poses, k4, dv = _scene_geometry(dev)
+    h, w, d = HEIGHT // 4, WIDTH // 4, NDEPTHS
+    proj = geometry.camera_projection(k4.expand(len(poses), 3, 3), poses)
+    src = torch.randn(2, h, w, CHANNELS, generator=gen).to(dev)
+    sx, sy = warp.plane_sweep_coords(proj[[0, 2]], proj[[1, 1]],
+                                     dv.expand(2, d), h, w)
+    vol, zi, x, y, z, dint = _frustum_inputs(gen, poses, k4, dv, [1, 0], 2)
+    equal = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        s, v = src.to(dtype), vol.to(dtype)
+        cases = {
+            "plane_sweep_warp": (
+                lambda q: plane_warp.plane_sweep_sample(s, *q),
+                lambda q: plane_warp.plane_sweep_sample_plain(s, *q),
+                (sx, sy)),
+            "frustum_warp_exact_z": (
+                lambda q: plane_warp_exact_z.exact_z_resample(
+                    v, zi, *q, DEPTH_MIN, dint),
+                lambda q: resample_exact_z(v, zi, *q, DEPTH_MIN, dint),
+                (x, y, z)),
+            "frustum_warp_plane_mix": (
+                lambda q: plane_mix.plane_mix_resample(v, zi, *q),
+                lambda q: plane_mix.plane_mix_resample_plain(v, zi, *q),
+                (x, y))}
+        for name, (run, plain, coords) in cases.items():
+            whole = run(coords)
+            for r, bounds in enumerate(shard_bounds(WIDTH, SPATIAL_RANKS)):
+                lo, hi = (c // 4 for c in bounds)
+                window = [q.reshape(2, d, h, w)[..., lo:hi].contiguous()
+                          for q in coords]
+                got = run(window)
+                key = f"{name}_{str(dtype)[6:]}_rank{r}"
+                equal[key] = {"whole": torch.equal(got, whole[..., lo:hi, :]),
+                              "plain": torch.equal(got, plain(window))}
+    if not all(all(v.values()) for v in equal.values()):
+        raise AssertionError(f"kernels at a rank's window: {equal}")
+    return equal
+
+
+def phase_spatial_shard(rows: list[dict]) -> None:
+    """The width-sharded forward (parallel/spatial.make_spatial_window_fn)
+    at the flagship width (256x320, D = 64, ResNet-50, float32 with TF32
+    off, random weights from seed 0, EST on) on two gloo ranks on the one
+    card, each a process of this script (`--spatial-rank R --port P --out
+    DIR`), 160 columns each, in turns with the one-device model: the ESTM
+    stream (6 frames: 4 windows, a 2-entry memory carried as each rank's
+    K/V columns), one 5-frame Joint window without memory, one plane-mix
+    window. The gathered maps (4 depth scales and both probabilities)
+    within SPATIAL_TOL of the one-device maps; kernels 1, 2 and 4 at each
+    rank's output window `torch.equal` to the whole launch's columns and
+    to their plain versions on the window's coordinates, both instances.
+    Launches of both ranks count under the `spatial_*` paths; ms per
+    window come from untimed turns, the collective share from one timed
+    ESTM and one timed Joint window."""
+    t_phase = time.perf_counter()
+    windows_equal = _spatial_kernel_windows()
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spatial-rank",
+             str(r), "--port", str(port), "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(SPATIAL_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=SPATIAL_RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"spatial rank {r} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+        ranks = []
+        for r in range(SPATIAL_RANKS):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    errors = ranks[0]["errors"]
+    worst = max(max(v) for v in errors.values())
+    if not worst <= SPATIAL_TOL:
+        raise AssertionError(f"sharded vs one-device maps: {errors}")
+    # per rank: kernel 1 once per window, kernel 2 once per EST window of
+    # the stream, kernel 4 once in the plane-mix window
+    windows = SPATIAL_FRAMES - LWINDOW + 1
+    expected = {"spatial_estm": {"plane_sweep_warp": windows,
+                                 "frustum_warp_exact_z": windows - 1},
+                "spatial_joint": {"plane_sweep_warp": 2},
+                "spatial_plane_mix": {"plane_sweep_warp": 1,
+                                      "frustum_warp_plane_mix": 1}}
+    launches = {}
+    for path, want in expected.items():
+        per_rank = [{k: sum(c["launches"][k] for c in r["calls"]
+                            if c["path"] == path) for k in KERNELS}
+                    for r in ranks]
+        if any(got != {**dict.fromkeys(KERNELS, 0), **want}
+               for got in per_rank):
+            raise AssertionError(f"{path} launches {per_rank}")
+        launches[path] = {k: sum(got[k] for got in per_rank)
+                          for k in KERNELS}
+    for row in rows:
+        for path, counts in launches.items():
+            row["launches_by_path"][path] = counts[row["name"]]
+    # each sharded call on both ranks; ms of the slower rank
+    pairs = list(zip(*(r["calls"] for r in ranks)))
+    ms = {path: [max(c["ms"] for c in pair) for pair in pairs
+                 if pair[0]["path"] == path] for path in expected}
+    one = ranks[0]["one_device_ms"]  # stream, Joint twice, plane-mix
+    steady = slice(2, windows)  # EST on, after the first EST window
+    last = {pair[0]["path"]: pair[0] for pair in pairs}  # rank 0's
+    # the timed turns (every collective synchronized on each side)
+    timed = {path: [pair for pair in pairs if pair[0]["path"] == path][0]
+             for path in ("spatial_estm_timed", "spatial_joint_timed")}
+    log("spatial_shard", ranks=SPATIAL_RANKS, backend="gloo",
+        columns=[hi - lo for lo, hi in shard_bounds(WIDTH, SPATIAL_RANKS)],
+        estm_ms_per_window_sharded=statistics.median(
+            ms["spatial_estm"][steady]),
+        estm_ms_per_window_one_device=statistics.median(
+            one[:windows][steady]),
+        estm_ms_sharded=ms["spatial_estm"], estm_ms_one_device=one[:windows],
+        joint_ms_sharded=ms["spatial_joint"],
+        joint_ms_one_device=one[windows:windows + 2],
+        plane_mix_ms_sharded=ms["spatial_plane_mix"],
+        plane_mix_ms_one_device=one[-1:],
+        collectives_per_window={p: last[p]["collectives"] for p in expected},
+        bytes_per_window={p: last[p]["bytes"] for p in expected},
+        collective_share={p: [c["collective_share"] for c in pair]
+                          for p, pair in timed.items()},
+        collective_ms_per_call={p: [c["ms_per_call"] for c in pair]
+                                for p, pair in timed.items()},
+        timed_ms={p: max(c["ms"] for c in pair) for p, pair in timed.items()},
+        max_memory_allocated=[max(c["max_memory_allocated"]
+                                  for c in r["calls"]) for r in ranks],
+        max_abs_err=errors, tol=SPATIAL_TOL, launches=launches,
+        kernels_at_rank_windows_equal=windows_equal,
+        phase_s=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi())
 
 
 # The SENet model (phase_senet_path) and --scene-batch (phase_scene_batch)
@@ -2962,6 +3265,7 @@ def main() -> None:
         phase_train_dataset(rows, train_ms["train"])
         phase_release(rows, train_ckpt)
     phase_train_ddp(rows)
+    phase_spatial_shard(rows)
     for row in rows:  # every kernel ran on a main path, in both dtypes
         row["op"] = OPS[row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2979,12 +3283,17 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:  # one rank of phase_train_ddp's case (b)
+    if len(sys.argv) > 1:  # one rank of phase_train_ddp's case (b), or of
+        # phase_spatial_shard
         flags = argparse.ArgumentParser()
-        flags.add_argument("--ddp-rank", type=int, required=True)
-        flags.add_argument("--ddp-port", type=int, required=True)
-        flags.add_argument("--ddp-out", required=True)
+        flags.add_argument("--ddp-rank", type=int)
+        flags.add_argument("--spatial-rank", type=int)
+        flags.add_argument("--port", type=int, required=True)
+        flags.add_argument("--out", required=True)
         a = flags.parse_args()
-        ddp_rank(a.ddp_rank, a.ddp_port, a.ddp_out)
+        if a.ddp_rank is not None:
+            ddp_rank(a.ddp_rank, a.port, a.out)
+        else:
+            spatial_rank(a.spatial_rank, a.port, a.out)
     else:
         main()

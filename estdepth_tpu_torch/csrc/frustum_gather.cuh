@@ -2,7 +2,7 @@
 // kernel 2 (csrc/frustum_warp_exact_z.cu) and kernel 4
 // (csrc/frustum_warp_plane_mix.cu).
 //
-// Both write a volume [B, D, H, W, C] whose voxel (b, d, i, j) is a
+// Both write a volume [B, D, H, Wo, C] whose voxel (b, d, i, j) is a
 // bilinear blend of four corner pixels of the source (x0, y0), (x0 + 1, y0),
 // (x0, y0 + 1), (x0 + 1, y0 + 1) of its exact source (x, y) (the stacked
 // sampler's corner rules), zero where (x, y) leaves the image. Each corner c
@@ -14,6 +14,14 @@
 // its z-window). An `Op` (each kernel's source) supplies those; this header
 // is the rest.
 //
+// The output grid is the source's rows by Wo columns: the source volume
+// [B, D, H, W, C] and zi [B, D, H*W] lie on the source grid, the
+// coordinates [B, D, H, Wo] and the output on the output grid, and a
+// voxel's corners are found from its own (x, y) alone. Wo = W is the whole
+// frustum; a width shard's columns (parallel/spatial.py) pass the
+// coordinates of its own columns and get exactly those columns of the
+// whole output.
+//
 // Both are bound by bytes (each kernel's source states its bound): the
 // volume is read once and a volume as large written, beside float32
 // coordinates. What held the one-thread-per-vector kernels they replace
@@ -24,8 +32,8 @@
 //
 // Layout of the work (the plane sweep's, csrc/sweep_gather.cuh, on 2-D
 // tiles):
-// - A block of kWarps warps owns a tile of kTileH x kTileW voxels of one
-//   target plane (b, d): one 32-bit division finds the plane, whose 64-bit
+// - A block of kWarps warps owns a tile of kTileH x kTileW output voxels of
+//   one target plane (b, d): one 32-bit division finds the plane, whose 64-bit
 //   bases are computed once; offsets from them are 32-bit wherever a batch
 //   entry's volume holds fewer than 2^31 vectors (`Index`).
 // - A lane owns one voxel (a warp: 32 / kTileW rows of kTileW). It loads x
@@ -100,9 +108,10 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
 
 // Block-uniform sizes.
 struct Shape {
-  int Z, H, W;
+  int Z, H, W;         // the source grid
+  int Wo;              // columns of the output grid
   int CV;              // 16-byte vectors per voxel
-  int tiles_x;         // tiles per row of a plane
+  int tiles_x;         // tiles per output row of a plane
   int tiles_per_slab;  // tiles per plane
   int right, down;     // 1 where a corner has a right / lower neighbour
 };
@@ -133,19 +142,20 @@ __device__ __forceinline__ void gather(
   const int slab = blockIdx.x / s.tiles_per_slab;  // b * D + d
   const int tile = blockIdx.x - slab * s.tiles_per_slab;
   const Index hw = static_cast<Index>(s.H) * W;
-  const long long first = static_cast<long long>(slab) * s.H * W;
+  // output voxels (and coordinates) before this plane
+  const long long first = static_cast<long long>(slab) * s.H * s.Wo;
   const Raw* vol_b = vol + static_cast<long long>(slab / Z) * Z * s.H * W * CV;
-  zi += first;
+  zi += static_cast<long long>(slab) * s.H * W;
   out += first * CV;
   const int lane = threadIdx.x & 31;
   // the warp's voxels: kWarpRows rows of kTileW from (row0, col0)
   const int ty = tile / s.tiles_x;
   const int row0 = ty * kTileH + kWarpRows * (threadIdx.x >> 5);
   const int col0 = (tile - ty * s.tiles_x) * kTileW;
-  // the plane pixel of the warp's voxel l, -1 outside the plane
+  // the output pixel of the warp's voxel l in its plane, -1 outside it
   const auto pixel = [&](int l) {
     const int row = row0 + l / kTileW, col = col0 + l % kTileW;
-    return row < s.H && col < W ? row * W + col : -1;
+    return row < s.H && col < s.Wo ? row * s.Wo + col : -1;
   };
 
   // the owner's pass: one voxel per lane
@@ -259,22 +269,24 @@ struct Launch {
 };
 
 // Launches the kernel of `Op` over vol [B, D, H, W, C] (D == Z planes),
-// zi [B, D, H*W] and x/y [B, D*H*W] into out [B, D, H, W, C] on `stream`;
-// returns the CUDA error of the launch. 32-bit offsets and a compile-time
-// CV for CV = 1, 2, 4, 8, 16 where a batch entry's volume holds fewer than
-// 2^31 vectors, else the generic instance (any CV, 64-bit offsets).
+// zi [B, D, H*W] and x/y [B, D, H, Wo] into out [B, D, H, Wo, C] on
+// `stream`; returns the CUDA error of the launch. 32-bit offsets and a
+// compile-time CV for CV = 1, 2, 4, 8, 16 where a batch entry's source and
+// output volumes hold fewer than 2^31 vectors each, else the generic
+// instance (any CV, 64-bit offsets).
 template <typename T, class Op>
 int launch(const void* vol, const void* zi, const void* x, const void* y,
-           void* out, int B, int D, int H, int W, int C, const Op& op,
-           void* stream) {
+           void* out, int B, int D, int H, int W, int Wo, int C,
+           const Op& op, void* stream) {
   using Raw = typename vec16::Vec<T>::Raw;
-  if (B == 0 || D == 0 || H == 0 || W == 0 || C == 0) return 0;
+  if (B == 0 || D == 0 || H == 0 || W == 0 || Wo == 0 || C == 0) return 0;
   Shape s;
   s.Z = D;
   s.H = H;
   s.W = W;
+  s.Wo = Wo;
   s.CV = C / vec16::Vec<T>::kLanes;
-  s.tiles_x = (W + kTileW - 1) / kTileW;
+  s.tiles_x = (Wo + kTileW - 1) / kTileW;
   s.tiles_per_slab = s.tiles_x * ((H + kTileH - 1) / kTileH);
   s.right = W > 1;
   s.down = H > 1;
@@ -289,7 +301,7 @@ int launch(const void* vol, const void* zi, const void* x, const void* y,
                         op,
                         static_cast<unsigned>(blocks),
                         static_cast<cudaStream_t>(stream)};
-  if (static_cast<long long>(D) * H * W * s.CV < INT_MAX) {
+  if (static_cast<long long>(D) * H * (W > Wo ? W : Wo) * s.CV < INT_MAX) {
     switch (s.CV) {
       case 1: return l.template run<1, int>();
       case 2: return l.template run<2, int>();

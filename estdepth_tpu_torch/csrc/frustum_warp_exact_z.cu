@@ -6,7 +6,9 @@
 // the [A | s] stack, then apply_exact_z_correction in XLA).
 //
 // Computes, per output voxel v = (b, d, i, j) with exact source coordinates
-// x[b, v'], y[b, v'] and source depth z[b, v'] (v' = (d*H + i)*W + j):
+// x[b, v'], y[b, v'] and source depth z[b, v'] (v' = (d*H + i)*Wo + j; Wo
+// the output's columns, W for the whole frustum, fewer for a width shard's
+// own columns):
 //   zi*   = (z - depth_min) * inv_depth_interval
 //   for each bilinear corner pixel c of (x, y) (stacked-sampler rules):
 //     z0(c) = clip(floor(clip(zi[b, d, c], 0, Z-1)), 0, Z-2)
@@ -94,37 +96,38 @@ struct ExactZ {
 
 template <typename T>
 int launch(const void* vol, const void* zi, const void* x, const void* y,
-           const void* z, void* out, int B, int D, int H, int W, int C,
-           float depth_min, float inv_depth_interval, void* stream) {
+           const void* z, void* out, int B, int D, int H, int W, int Wo,
+           int C, float depth_min, float inv_depth_interval, void* stream) {
   const ExactZ op{static_cast<const float*>(z), depth_min,
                   inv_depth_interval};
-  return frustum::launch<T>(vol, zi, x, y, out, B, D, H, W, C, op, stream);
+  return frustum::launch<T>(vol, zi, x, y, out, B, D, H, W, Wo, C, op,
+                            stream);
 }
 
 }  // namespace
 
-// vol [B, D, H, W, C], out like vol; zi [B, D, H*W] and x/y/z [B, D*H*W]
-// float32; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), D >= 2
-// (checked by the Python wrapper). Launches on `stream` and returns the
-// launch's CUDA error (cudaGetLastError()).
+// vol [B, D, H, W, C], zi [B, D, H*W], x/y/z [B, D, H, Wo] float32, out
+// [B, D, H, Wo, C] of vol's type; contiguous, C a multiple of 4 (float32)
+// or 8 (bfloat16), D >= 2 (checked by the Python wrapper). Launches on
+// `stream` and returns the launch's CUDA error (cudaGetLastError()).
 extern "C" int frustum_warp_exact_z_f32(const void* vol, const void* zi,
                                         const void* x, const void* y,
                                         const void* z, void* out, int B,
-                                        int D, int H, int W, int C,
+                                        int D, int H, int W, int Wo, int C,
                                         float depth_min,
                                         float inv_depth_interval,
                                         void* stream) {
-  return launch<float>(vol, zi, x, y, z, out, B, D, H, W, C, depth_min,
+  return launch<float>(vol, zi, x, y, z, out, B, D, H, W, Wo, C, depth_min,
                        inv_depth_interval, stream);
 }
 
 extern "C" int frustum_warp_exact_z_bf16(const void* vol, const void* zi,
                                          const void* x, const void* y,
                                          const void* z, void* out, int B,
-                                         int D, int H, int W, int C,
+                                         int D, int H, int W, int Wo, int C,
                                          float depth_min,
                                          float inv_depth_interval,
                                          void* stream) {
-  return launch<__nv_bfloat16>(vol, zi, x, y, z, out, B, D, H, W, C,
+  return launch<__nv_bfloat16>(vol, zi, x, y, z, out, B, D, H, W, Wo, C,
                                depth_min, inv_depth_interval, stream);
 }

@@ -5,7 +5,8 @@
 // transpose, then the two resample passes of _two_pass).
 //
 // Computes, per output voxel v = (b, d, i, j) with exact source coordinates
-// x[b, v'], y[b, v'] (v' = (d*H + i)*W + j):
+// x[b, v'], y[b, v'] (v' = (d*H + i)*Wo + j; Wo the output's columns, W for
+// the whole frustum, fewer for a width shard's own columns):
 //   for each bilinear corner pixel c of (x, y) (stacked-sampler rules):
 //     q     = zi[b, d, c]            the plane index of target plane d at c
 //     z0    = clip(floor(q), 0, Z-2)
@@ -90,27 +91,31 @@ struct PlaneMix {
 
 template <typename T>
 int launch(const void* vol, const void* zi, const void* x, const void* y,
-           void* out, int B, int D, int H, int W, int C, void* stream) {
-  return frustum::launch<T>(vol, zi, x, y, out, B, D, H, W, C, PlaneMix{D},
-                            stream);
+           void* out, int B, int D, int H, int W, int Wo, int C,
+           void* stream) {
+  return frustum::launch<T>(vol, zi, x, y, out, B, D, H, W, Wo, C,
+                            PlaneMix{D}, stream);
 }
 
 }  // namespace
 
-// vol [B, D, H, W, C], out like vol; zi [B, D, H*W] and x/y [B, D*H*W]
-// float32; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), D >= 2
-// (checked by the Python wrapper). Launches on `stream` and returns the
-// launch's CUDA error (cudaGetLastError()).
+// vol [B, D, H, W, C], zi [B, D, H*W], x/y [B, D, H, Wo] float32, out
+// [B, D, H, Wo, C] of vol's type; contiguous, C a multiple of 4 (float32)
+// or 8 (bfloat16), D >= 2 (checked by the Python wrapper). Launches on
+// `stream` and returns the launch's CUDA error (cudaGetLastError()).
 extern "C" int frustum_warp_plane_mix_f32(const void* vol, const void* zi,
                                           const void* x, const void* y,
                                           void* out, int B, int D, int H,
-                                          int W, int C, void* stream) {
-  return launch<float>(vol, zi, x, y, out, B, D, H, W, C, stream);
+                                          int W, int Wo, int C,
+                                          void* stream) {
+  return launch<float>(vol, zi, x, y, out, B, D, H, W, Wo, C, stream);
 }
 
 extern "C" int frustum_warp_plane_mix_bf16(const void* vol, const void* zi,
                                            const void* x, const void* y,
                                            void* out, int B, int D, int H,
-                                           int W, int C, void* stream) {
-  return launch<__nv_bfloat16>(vol, zi, x, y, out, B, D, H, W, C, stream);
+                                           int W, int Wo, int C,
+                                           void* stream) {
+  return launch<__nv_bfloat16>(vol, zi, x, y, out, B, D, H, W, Wo, C,
+                               stream);
 }

@@ -4,7 +4,8 @@
 // (_psweep_impl -> _two_pass, kernels _make_pass1_kernel / _make_pass2_kernel).
 //
 // Computes: out[b, d, i, j, :] = bilinear(src[b], x[b, v], y[b, v]) with
-// v = (d*H + i)*W + j, the stacked-sampler corner rules of
+// v = (d*H + i)*Wo + j (Wo the output's columns: W for the whole sweep,
+// fewer for a width shard's own columns), the stacked-sampler corner rules of
 // ops/sampling.py (clip the coordinate to [0, size-1], the base index to
 // [0, size-2], the fraction against the clipped coordinate) and a hard zero
 // where the unclipped (x, y) leaves [0, W-1] x [0, H-1].
@@ -23,7 +24,11 @@
 // (y0 + 1, x0), (y0 + 1, x0 + 1) with one x fraction for both rows, and
 // the blend is lerp(lerp(v00, v01, wx), lerp(v10, v11, wx), wy). The index
 // math, the mask and the corner rules run once per voxel, not once per
-// vector, and the volume is written with evict-first stores.
+// vector, and the volume is written with evict-first stores. A slab is
+// the output's D*H*Wo voxels and its map the source's H*W pixels: the body
+// finds a voxel's corners from its own (x, y) alone, so a window of Wo < W
+// columns (parallel/spatial.py) writes exactly those columns of the whole
+// sweep.
 //
 // Two instances of one body: plane_sweep_warp_f32 and plane_sweep_warp_bf16
 // (a bfloat16 map and volume, float32 coordinates; the blend in float32,
@@ -86,9 +91,9 @@ struct Launch {
 
 template <typename T>
 int launch(const void* src, const void* x, const void* y, void* out, int B,
-           int D, int H, int W, int C, void* stream) {
+           int D, int H, int W, int Wo, int C, void* stream) {
   using Raw = typename vec16::Vec<T>::Raw;
-  const long long voxels = static_cast<long long>(D) * H * W;
+  const long long voxels = static_cast<long long>(D) * H * Wo;
   if (B == 0 || voxels == 0 || C == 0) return 0;
   sweep::Shape s;
   const unsigned blocks = sweep::plan(B, voxels, s);
@@ -107,18 +112,20 @@ int launch(const void* src, const void* x, const void* y, void* out, int B,
 
 }  // namespace
 
-// src [B, H, W, C], x/y [B, D*H*W] float32, out [B, D, H, W, C] of src's
-// type; contiguous, C a multiple of 4 (float32) or 8 (bfloat16), checked
-// by the Python wrapper. Launches on `stream` and returns
+// src [B, H, W, C], x/y [B, D, H, Wo] float32, out [B, D, H, Wo, C] of
+// src's type; contiguous, C a multiple of 4 (float32) or 8 (bfloat16),
+// checked by the Python wrapper. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int plane_sweep_warp_f32(const void* src, const void* x,
                                     const void* y, void* out, int B, int D,
-                                    int H, int W, int C, void* stream) {
-  return launch<float>(src, x, y, out, B, D, H, W, C, stream);
+                                    int H, int W, int Wo, int C,
+                                    void* stream) {
+  return launch<float>(src, x, y, out, B, D, H, W, Wo, C, stream);
 }
 
 extern "C" int plane_sweep_warp_bf16(const void* src, const void* x,
                                      const void* y, void* out, int B, int D,
-                                     int H, int W, int C, void* stream) {
-  return launch<__nv_bfloat16>(src, x, y, out, B, D, H, W, C, stream);
+                                     int H, int W, int Wo, int C,
+                                     void* stream) {
+  return launch<__nv_bfloat16>(src, x, y, out, B, D, H, W, Wo, C, stream);
 }

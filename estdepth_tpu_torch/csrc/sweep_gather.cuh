@@ -4,7 +4,8 @@
 //
 // Both write a volume of slabs [S, N voxels, C] (kernel 1: one batch
 // entry's D planes; kernel 3: one plane) from a source map [H, W, C] per
-// slab or group of slabs, in float32 or bfloat16 (the element type T, one
+// slab or group of slabs (a slab's voxels need not lie on its map's grid:
+// kernel 1 writes a window of a map's columns for a width shard), in float32 or bfloat16 (the element type T, one
 // body for both: csrc/vec16.cuh). Every output voxel is a blend of four
 // corners of its map: a left and a right one on an upper row and on a
 // lower row, a fraction along each row and one between the rows, or zero

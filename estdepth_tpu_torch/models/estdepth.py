@@ -18,6 +18,11 @@ computes in the dtype it is given (models/layers.py). The parameters,
 BatchNorm's statistics, the softmaxes and the depth outputs stay float32,
 and the returned key/value state is in the compute dtype.
 
+Inside `parallel.spatial.width_sharded` the frames, matching features and
+memory volumes are one rank's width shard and so are the outputs
+(parallel/spatial.make_spatial_window_fn): eval only, and not with the
+SENet encoder or the two-pass plane sweep yet (both raise).
+
 The module rests in eval mode (BatchNorm on its running statistics).
 `forward(..., train=True)` switches it to train mode for that call, as the
 JAX module's `train` argument does: BatchNorm normalizes with the batch's
@@ -43,6 +48,7 @@ from estdepth_tpu_torch.ops.geometry import (
     camera_projection, scale_intrinsics,
 )
 from estdepth_tpu_torch.ops.warp import plane_sweep_warp
+from estdepth_tpu_torch.ops import shard_context
 
 
 def _normalize_images(imgs: torch.Tensor,
@@ -217,6 +223,12 @@ class DepthNetHybrid(nn.Module):
         if use_est is None:
             use_est = self.cfg.est_transformer and (train
                                                     or memory is not None)
+        if shard_context.current() is not None:
+            if train:
+                raise ValueError("a width-sharded forward is eval only "
+                                 "(train=False), as the JAX function")
+            if self.cfg.feature_net == "senet":
+                shard_context.refuse_deferred("senet")
         if train and use_est and self.cfg.use_fused_attention:
             raise ValueError(
                 "use_fused_attention cannot train: the attention kernel is "

@@ -15,6 +15,12 @@ TorchBatchNorm(axis_name="data"): statistics averaged over a data mesh.
 The JAX package's TPU re-expressions of the 3D conv (Decomp3DConv,
 PackedConv3D, conv3d_as2d) bind the same parameters as a plain conv3d and
 compute the same function; the port uses `nn.Conv3d`.
+
+Inside `width_sharded` (ops/shard_context.py) the input's width axis (the
+last) is one rank's shard: `Conv2d`/`Conv3d` and `MaxPool2d` widen it by
+halo columns of the neighbouring ranks and pad only the other axes, and
+`GroupNorm` takes its statistics over every rank's columns. Outside it
+they compute what they always did.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from estdepth_tpu_torch.ops import shard_context
+
 # flax's truncated-normal variance scaling divides the normal's stddev by
 # the stddev of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -32,7 +40,22 @@ _TRUNC_STD = 0.87962566103423978
 
 def _conv_in_input_dtype(conv, x: torch.Tensor) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+    weight = conv.weight.to(x.dtype)
+    shards = shard_context.current()
+    if shards is None:
+        return conv._conv_forward(x, weight, bias)
+    # a width shard: its neighbours' columns (zeros past the image's
+    # edges) in place of the width padding
+    if conv.padding_mode != "zeros" or isinstance(conv.padding, str):
+        raise ValueError(f"{conv}: width sharding takes explicit zero "
+                         f"padding")
+    left, right = shard_context.conv_halo(
+        conv.kernel_size[-1], conv.stride[-1], conv.padding[-1],
+        conv.dilation[-1])
+    x = shards.halo(x, -1, left, right)
+    fn = F.conv2d if x.dim() == 4 else F.conv3d
+    return fn(x, weight, bias, conv.stride, (*conv.padding[:-1], 0),
+              conv.dilation, conv.groups)
 
 
 class Conv2d(nn.Conv2d):
@@ -56,10 +79,48 @@ class Linear(nn.Linear):
 
 
 class GroupNorm(nn.GroupNorm):
-    """nn.GroupNorm computed in float32, returned in its input's dtype."""
+    """nn.GroupNorm computed in float32, returned in its input's dtype.
+    On a width shard the float32 statistics span every rank's columns:
+    the per-sample, per-group sum all-reduced for the mean, then the sum
+    of squares about that mean for the (biased) variance."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        shards = shard_context.current()
+        if shards is None:
+            return super().forward(x.float()).to(x.dtype)
+        n, c = x.shape[:2]
+        g = self.num_groups
+        xf = x.float().reshape(n, g, -1)
+        count = xf.shape[-1] // x.shape[-1] * shards.full_width(x.shape[-1])
+        mean = shards.all_reduce(xf.sum(-1)) / count
+        xc = xf - mean[..., None]
+        var = shards.all_reduce(xc.square().sum(-1)) / count
+        y = (xc * torch.rsqrt(var + self.eps)[..., None]).reshape(x.shape)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d; on a width shard its width padding (-inf) becomes
+    halo columns of the neighbouring ranks, -inf past the image's
+    edges."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shards = shard_context.current()
+        if shards is None:
+            return super().forward(x)
+        k, s, p, dl = (v if isinstance(v, int) else v[-1] for v in (
+            self.kernel_size, self.stride, self.padding, self.dilation))
+        if self.ceil_mode:
+            raise ValueError("width sharding takes ceil_mode=False")
+        x = shards.halo(x, -1, *shard_context.conv_halo(k, s, p, dl),
+                        value=float("-inf"))
+        pad_h = self.padding if isinstance(self.padding, int) else (
+            self.padding[0])
+        return F.max_pool2d(x, self.kernel_size, self.stride, (pad_h, 0),
+                            self.dilation)
 
 
 def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -206,3 +267,4 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     torch-1.2 F.upsample(mode='bilinear') (psm_submodule.py:101-110)."""
     return F.interpolate(x, size=(height, width), mode="bilinear",
                          align_corners=False)
+

@@ -16,6 +16,7 @@ from torch import nn
 from estdepth_tpu_torch.models.layers import (
     Conv2d, conv_bn, he_conv, resize_bilinear,
 )
+from estdepth_tpu_torch.ops import shard_context
 
 
 class PSMBasicBlock(nn.Module):
@@ -92,14 +93,57 @@ def pyramid(net: nn.Module, raw: torch.Tensor,
     """The spatial-pyramid head's input: `skip` average-pooled at the four
     windows of `net.POOLS`, each through `net.branch1..4` and resized back,
     concatenated in the reference's order raw, skip, branch4, branch3,
-    branch2, branch1 (psm.py:97)."""
+    branch2, branch1 (psm.py:97). On a width shard (parallel/spatial.py)
+    the pooled maps are whole on every rank (`_sharded_pools`) and each
+    branch is resized to the whole width and cut to this rank's columns."""
     h, w = skip.shape[2:]
+    shards = shard_context.current()
+    full_w = w if shards is None else shards.full_width(w)
+    # clamp the window so inputs below the reference resolution still
+    # pool to >= 1x1 (psm.py:89; identical at 64x80 and up)
+    wins = [(min(pool, h), min(pool, full_w)) for pool in net.POOLS]
+    if shards is None:
+        pooled = [F.avg_pool2d(skip, win, win) for win in wins]
+    else:
+        pooled = _sharded_pools(skip, wins, shards)
+    start = 0 if shards is None else shards.columns(w)[0]
     branches = []
-    for i, pool in enumerate(net.POOLS):
-        # clamp the window so inputs below the reference resolution still
-        # pool to >= 1x1 (psm.py:89; identical at 64x80 and up)
-        win = (min(pool, h), min(pool, w))
-        b = F.avg_pool2d(skip, win, win)
+    for i, b in enumerate(pooled):
         b = getattr(net, f"branch{i + 1}")(b)
-        branches.append(resize_bilinear(b, h, w))
+        branches.append(resize_bilinear(b, h, full_w).narrow(-1, start, w))
     return torch.cat([raw, skip] + branches[::-1], 1)
+
+
+def _sharded_pools(skip: torch.Tensor, wins: list,
+                   shards) -> list[torch.Tensor]:
+    """F.avg_pool2d(whole skip, win, win) for each window of `wins`, whole
+    on every rank, from this rank's columns of `skip` [N, C, h, w_r]: the
+    float32 sums of each window's rows and of this rank's columns of it,
+    all-reduced over the ranks (one all_reduce for all four), divided
+    by the window's size. Rows and columns past the last whole window are
+    dropped, as avg_pool2d drops them."""
+    n, c, h, w = skip.shape
+    start, _ = shards.columns(w)
+    full_w = shards.full_width(w)
+    sums = []
+    for wh, ww in wins:
+        ph, pw = h // wh, full_w // ww
+        x = skip[:, :, :ph * wh].float().reshape(n, c, ph, wh, w).sum(3)
+        # this rank's columns placed in the windows they fall in: zeros
+        # before `start` and after the shard complete its first and last
+        # window, and windows past the pw whole ones are cut
+        k0, lead = divmod(start, ww)
+        tail = -(lead + w) % ww
+        x = F.pad(x, (lead, tail)).reshape(n, c, ph, -1, ww).sum(-1)
+        part = x.new_zeros(n, c, ph, pw)
+        k1 = min(pw, k0 + x.shape[-1])
+        if k1 > k0:
+            part[..., k0:k1] = x[..., :k1 - k0]
+        sums.append(part)
+    total = shards.all_reduce(torch.cat([t.flatten() for t in sums]))
+    out, i = [], 0
+    for (wh, ww), part in zip(wins, sums):
+        out.append((total[i:i + part.numel()].view(part.shape)
+                    / (wh * ww)).to(skip.dtype))
+        i += part.numel()
+    return out

@@ -3,7 +3,8 @@ estdepth_tpu/models/resnet.py; reference resnet_encoder.py:17-51).
 
 Returns the 5 post-ReLU feature maps [relu(bn1(conv1)), layer1..layer4]
 at strides 2/4/8/16/32 (NCHW). The 7x7 stem is followed by a 3x3/2
-max-pool padded with -inf. The torchvision classification head is absent
+max-pool padded with -inf (on a width shard: halo columns,
+models/layers.MaxPool2d). The torchvision classification head is absent
 (the reference never calls it), so the encoder's names are exactly those
 export_state_dict emits under `semanticFeature.encoder`.
 """
@@ -13,7 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from estdepth_tpu_torch.models.layers import Conv2d, conv_bn, he_conv
+from estdepth_tpu_torch.models.layers import (
+    Conv2d, MaxPool2d, conv_bn, he_conv,
+)
 
 _STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -90,7 +93,7 @@ class _ResNet(nn.Module):
         self.conv1 = _conv(3, 64, 7, 2)
         self.bn1 = _bn(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         inplanes, planes = 64, 64
         for stage_i, blocks in enumerate(stages):
             stride = 1 if stage_i == 0 else 2

@@ -154,6 +154,26 @@ class Kernel:
             self.launches_bf16 += 1
 
 
+def output_grid(name: str, x: torch.Tensor, height: int, width: int,
+                planes: int | None = None) -> tuple[int, int, int]:
+    """The output grid (D, H, Wo) that a warp's coordinates name, for a
+    source grid of `height` x `width`: x [B, D, H, Wo] names Wo output
+    columns (a width shard's own, parallel/spatial.py), x [B, D*H*W] the
+    source grid's own D planes. `planes` is D where the source fixes it
+    (a frustum volume's planes), else the 2-D form must be a multiple of
+    H*W. Raises for any other shape."""
+    if x.dim() == 4 and x.shape[2] == height and (
+            planes is None or x.shape[1] == planes):
+        return tuple(x.shape[1:])
+    if x.dim() == 2 and x.shape[1] % (height * width) == 0 and (
+            planes is None or x.shape[1] == planes * height * width):
+        return x.shape[1] // (height * width), height, width
+    grid = "D*H*W" if planes is None else f"{planes}*{height}*{width}"
+    raise ValueError(f"{name}: coordinates {tuple(x.shape)} for a "
+                     f"{height}x{width} source: [B, {grid}] or "
+                     f"[B, D, {height}, Wo]")
+
+
 def require_channels(name: str, shape, dtype: torch.dtype) -> None:
     """Raise unless a voxel's C channels of `dtype` are whole 16-byte
     vectors: C % 4 == 0 in float32, C % 8 == 0 in bfloat16."""

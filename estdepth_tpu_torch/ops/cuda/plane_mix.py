@@ -9,6 +9,11 @@ package: the z-mix per SOURCE pixel, then one bilinear sample per voxel at
 the exact (x, y). The zi field is computed in PyTorch by the caller
 (ops/warp_exact_z.zi_field) and read by both.
 
+The coordinates name the output grid: x, y [B, D*H*W] the volume's own
+grid, x, y [B, D, H, Wo] a window of Wo columns (a width shard's own,
+parallel/spatial.py), exactly those columns of the whole output; zi stays
+on the volume's (source) grid.
+
 The volume is float32 or bfloat16 (the kernel's two instances; C % 4 == 0
 or C % 8 == 0), zi and the coordinates float32, the result in the volume's
 dtype. A bfloat16 volume is mixed and sampled in float32 and rounded once,
@@ -33,7 +38,7 @@ from estdepth_tpu_torch.ops.warp_exact_z import EPS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = build.Kernel("frustum_warp_plane_mix", "frustum_warp_plane_mix",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 
 def z_mix(volume: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
@@ -64,13 +69,14 @@ def z_mix(volume: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
 def plane_mix_resample_plain(volume: torch.Tensor, zi: torch.Tensor,
                              x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
-    -> [B, D, H, W, C] in volume's dtype. Plain version of kernel 4: a
-    bfloat16 volume is mixed and sampled in float32 and rounded once."""
+    -> [B, D, H, W, C] (or [B, D, H, Wo] -> [B, D, H, Wo, C]) in volume's
+    dtype. Plain version of kernel 4: a bfloat16 volume is mixed and
+    sampled in float32 and rounded once."""
     b, d, h, w, c = volume.shape
+    _, _, wo = build.output_grid("plane_mix_resample", x, h, w, d)
     mixed = z_mix(upcast_half(volume), zi).reshape(b * d, h, w, c)
-    out = bilinear_sample(mixed, x.reshape(b * d, h * w),
-                          y.reshape(b * d, h * w))
-    return out.reshape(b, d, h, w, c).to(volume.dtype)
+    out = bilinear_sample(mixed, x.reshape(b * d, -1), y.reshape(b * d, -1))
+    return out.reshape(b, d, h, wo, c).to(volume.dtype)
 
 
 def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
@@ -83,19 +89,22 @@ def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require_channels("plane_mix_resample: volume", volume.shape,
                            volume.dtype)
+    _, _, wo = build.output_grid("plane_mix_resample", x, h, w, d)
     build.require(zi, "zi", (b, d, h * w), dev, dtype=torch.float32)
-    build.require(x, "x", (b, d * h * w), dev, dtype=torch.float32)
-    build.require(y, "y", (b, d * h * w), dev, dtype=torch.float32)
-    out = torch.empty_like(volume)
+    build.require(x, "x", (b, *x.shape[1:]), dev, dtype=torch.float32)
+    build.require(y, "y", x.shape, dev, dtype=torch.float32)
+    out = volume.new_empty((b, d, h, wo, c))
     with torch.cuda.device(dev):  # the C entry launches there
         KERNEL(volume.dtype, volume.data_ptr(), zi.data_ptr(),
-               x.data_ptr(), y.data_ptr(), out.data_ptr(), b, d, h, w, c,
-               torch.cuda.current_stream().cuda_stream)
+               x.data_ptr(), y.data_ptr(), out.data_ptr(), b, d, h, w, wo,
+               c, torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def _fake(volume, zi, x, y):
-    return volume.new_empty(volume.shape)
+    b, d, h, w, c = volume.shape
+    _, _, wo = build.output_grid("plane_mix_resample", x, h, w, d)
+    return volume.new_empty((b, d, h, wo, c))
 
 
 OP = library.define("plane_mix_resample", plane_mix_resample_plain, _launch,
@@ -105,9 +114,11 @@ OP = library.define("plane_mix_resample", plane_mix_resample_plain, _launch,
 def plane_mix_resample(volume: torch.Tensor, zi: torch.Tensor,
                        x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y [B, D*H*W]
-    -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    -> [B, D, H, W, C], or [B, D, H, Wo] -> [B, D, H, Wo, C]: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
     library.check_device("plane_mix_resample", volume)
+    build.output_grid("plane_mix_resample", x, *volume.shape[2:4],
+                      volume.shape[1])
     return build.sample_with_plain_grad(
         OP, plane_mix_resample_plain, "frustum_warp_plane_mix", volume, zi,
         x, y)

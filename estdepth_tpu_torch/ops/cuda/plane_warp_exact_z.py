@@ -12,6 +12,11 @@ the float32 reciprocal that PyTorch multiplies by when it divides a tensor
 by a scalar on the card, which keeps the kernel bit-equal to the plain
 version.
 
+The coordinates name the output grid: x, y, z [B, D*H*W] the volume's own
+grid, x, y, z [B, D, H, Wo] a window of Wo columns (a width shard's own,
+parallel/spatial.py), exactly those columns of the whole output; zi stays
+on the volume's (source) grid.
+
 The volume is float32 or bfloat16 (the kernel's two instances; C % 4 == 0
 or C % 8 == 0), zi and the coordinates float32, the result in the volume's
 dtype: A and s are float32 for either (ops/warp_exact_z.py), and a
@@ -38,7 +43,7 @@ from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = build.Kernel(
     "frustum_warp_exact_z", "frustum_warp_exact_z",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 )
 
 
@@ -53,22 +58,25 @@ def _launch(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
     build.require(volume, "volume", (b, d, h, w, c), dev, allow_grad=True)
     build.require_channels("exact_z_resample: volume", volume.shape,
                            volume.dtype)
+    _, _, wo = build.output_grid("exact_z_resample", x, h, w, d)
     build.require(zi, "zi", (b, d, h * w), dev, dtype=torch.float32)
     for name, t in (("x", x), ("y", y), ("z", z)):
-        build.require(t, name, (b, d * h * w), dev, dtype=torch.float32)
-    out = torch.empty_like(volume)
+        build.require(t, name, (b, *x.shape[1:]), dev, dtype=torch.float32)
+    out = volume.new_empty((b, d, h, wo, c))
     # the f32 reciprocal PyTorch uses for a tensor / scalar on the card
     inv_interval = float(np.float32(1.0) / np.float32(depth_interval))
     with torch.cuda.device(dev):  # the C entry launches there
         KERNEL(volume.dtype, volume.data_ptr(), zi.data_ptr(),
                x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(),
-               b, d, h, w, c, float(depth_min), inv_interval,
+               b, d, h, w, wo, c, float(depth_min), inv_interval,
                torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def _fake(volume, zi, x, y, z, depth_min, depth_interval):
-    return volume.new_empty(volume.shape)
+    b, d, h, w, c = volume.shape
+    _, _, wo = build.output_grid("exact_z_resample", x, h, w, d)
+    return volume.new_empty((b, d, h, wo, c))
 
 
 OP = library.define("exact_z_resample", resample_exact_z, _launch, _fake)
@@ -78,9 +86,11 @@ def exact_z_resample(volume: torch.Tensor, zi: torch.Tensor, x: torch.Tensor,
                      y: torch.Tensor, z: torch.Tensor, depth_min: float,
                      depth_interval: float) -> torch.Tensor:
     """volume [B, D, H, W, C], zi [B, D, H*W], exact source x, y and depth z
-    [B, D*H*W] -> [B, D, H, W, C]: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    [B, D*H*W] -> [B, D, H, W, C], or [B, D, H, Wo] -> [B, D, H, Wo, C]:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
     library.check_device("exact_z_resample", volume)
+    build.output_grid("exact_z_resample", x, *volume.shape[2:4],
+                      volume.shape[1])
     depth_min, depth_interval = float(depth_min), float(depth_interval)
 
     def plain(vol, *coords):

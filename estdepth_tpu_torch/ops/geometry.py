@@ -17,11 +17,17 @@ import torch
 
 
 def pixel_grid(height: int, width: int, device=None,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32,
+               columns: tuple[int, int] | None = None) -> torch.Tensor:
     """Homogeneous pixel grid [3, H*W] with rows (x, y, 1), row-major over
-    (y, x) (homo_utils.py:7-14)."""
+    (y, x) (homo_utils.py:7-14). `columns` (start, stop) keeps the pixels
+    of those columns of the `width`: [3, H*(stop-start)] with their
+    global x (a width shard's, parallel/spatial.py)."""
+    start, stop = (0, width) if columns is None else columns
+    if not 0 <= start < stop <= width:
+        raise ValueError(f"columns {columns} of a width of {width}")
     y = torch.arange(height, dtype=dtype, device=device)
-    x = torch.arange(width, dtype=dtype, device=device)
+    x = torch.arange(start, stop, dtype=dtype, device=device)
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     return torch.stack(
         [xx.reshape(-1), yy.reshape(-1), torch.ones_like(xx).reshape(-1)], 0

@@ -19,6 +19,14 @@ ESTDEPTH_FUSED_WARP=1, instead of the exact bilinear sample.
 
 Gradients flow to the sampled features or volume only: the wrappers give
 the coordinates none, as the JAX package's `custom_vjp`s do.
+
+Inside `parallel.spatial.width_sharded` the maps and volumes given are one
+rank's width shard. A sample lands anywhere in a row, so both warps gather
+the sampled maps or volume whole (one all_gather), compute the coordinates
+of this rank's own output columns only (the zi field of the frustum warps
+on the whole source grid) and have the kernels write those columns:
+coordinates [B, D, H, W_r] name an output window (ops/cuda/*.py). The
+two-pass route is not sharded (`shard_context.refuse_deferred`).
 """
 
 from __future__ import annotations
@@ -34,20 +42,23 @@ from estdepth_tpu_torch.ops.cuda.two_pass import (
 )
 from estdepth_tpu_torch.ops.sampling import trilinear_sample
 from estdepth_tpu_torch.ops.warp_exact_z import zi_field
+from estdepth_tpu_torch.ops import shard_context
 
 FRUSTUM_MODES = ("exact", "plane_mix", "plane_mix_exact_z")
 
 
 def _plane_sweep_geometry(src_proj: torch.Tensor, ref_proj: torch.Tensor,
                           depth_values: torch.Tensor, height: int,
-                          width: int):
+                          width: int, columns=None):
     """(rot, trans, x, y): rot [B, 3, 3] / trans [B, 3] of
     src_proj @ inv(ref_proj) (homo_utils.py:469-471) and the source pixel
     coordinates x, y [B, D*H*W] of every (plane, ref pixel), the projective
-    division with +1e-8 (:483)."""
+    division with +1e-8 (:483); with `columns` (start, stop) of the ref
+    pixels of those columns only, [B, D*H*(stop-start)]."""
     b, d = depth_values.shape
     rot, trans = geometry.relative_projection(src_proj, ref_proj)
-    grid = geometry.pixel_grid(height, width, device=rot.device)
+    grid = geometry.pixel_grid(height, width, device=rot.device,
+                               columns=columns)
     rot_xyz = torch.matmul(rot, grid)  # [B, 3, HW]
     pts = rot_xyz[:, :, None, :] * depth_values[:, None, :, None]
     pts = pts + trans[:, :, None, None]
@@ -86,6 +97,17 @@ def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
     instead of the exact bilinear sample (kernel 1)."""
     b, h, w, c = src_feat.shape
     d = depth_values.shape[1]
+    shards = shard_context.current()
+    if shards is not None:
+        if two_pass:
+            shard_context.refuse_deferred("two_pass_warp")
+        columns = shards.columns(w)
+        src_feat = shards.gather_width(src_feat, 2)
+        _, _, x, y = _plane_sweep_geometry(src_proj, ref_proj, depth_values,
+                                           h, src_feat.shape[2], columns)
+        shape = (b, d, h, w)  # this rank's output columns
+        return plane_sweep_sample(src_feat, x.reshape(shape),
+                                  y.reshape(shape))
     rot, trans, x, y = _plane_sweep_geometry(src_proj, ref_proj,
                                              depth_values, h, w)
     if not two_pass:
@@ -97,12 +119,16 @@ def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
 
 
 def frustum_coords(rel_pose: torch.Tensor, cam_intr: torch.Tensor,
-                   depth_values: torch.Tensor, height: int, width: int):
+                   depth_values: torch.Tensor, height: int, width: int,
+                   columns=None):
     """Target frustum voxels lifted and projected into the source view:
     returns (t, grid, x, y, z) with t = inv(rel_pose) the target->source
-    transform, grid [3, HW], and x, y, z [B, D*H*W] (z is source depth)."""
+    transform, grid [3, HW], and x, y, z [B, D*H*W] (z is source depth);
+    with `columns` (start, stop) the target voxels of those columns only:
+    grid [3, H*(stop-start)] and x, y, z [B, D*H*(stop-start)]."""
     b = rel_pose.shape[0]
-    grid = geometry.pixel_grid(height, width, device=rel_pose.device)
+    grid = geometry.pixel_grid(height, width, device=rel_pose.device,
+                               columns=columns)
     rays = geometry.backproject(cam_intr, grid)  # [B, 3, HW]
     pts = rays[:, :, None, :] * depth_values[:, None, :, None]
     t = torch.linalg.inv(rel_pose)
@@ -142,8 +168,15 @@ def frustum_warp(volume: torch.Tensor, rel_pose: torch.Tensor,
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if mode != "exact" and padding_mode != "zeros":
         raise ValueError(f"{mode} supports zeros padding only")
+    shards = shard_context.current()
+    columns = None
+    if shards is not None:
+        columns = shards.columns(volume.shape[3])
+        volume = shards.gather_width(volume, 3)
     b, d, h, w, c = volume.shape
-    t, grid, x, y, z = frustum_coords(rel_pose, cam_intr, depth_values, h, w)
+    t, grid, x, y, z = frustum_coords(rel_pose, cam_intr, depth_values, h, w,
+                                      columns)
+    out = (b, d, h, grid.shape[1] // h)  # the output grid
     if mode == "exact":
         zi = (z - depth_min) / depth_interval  # fractional source plane
         if padding_mode == "border":
@@ -151,7 +184,12 @@ def frustum_warp(volume: torch.Tensor, rel_pose: torch.Tensor,
             x = x.clamp(0.0, w - 1.0)
             y = y.clamp(0.0, h - 1.0)
             zi = zi.clamp(0.0, d - 1.0)
-        return trilinear_sample(volume, x, y, zi).reshape(b, d, h, w, c)
+        return trilinear_sample(volume, x, y, zi).reshape(*out, c)
+    if shards is not None:
+        # the zi field lives on the whole source grid, and the coordinates
+        # name this rank's output columns
+        grid = geometry.pixel_grid(h, w, device=rel_pose.device)
+        x, y, z = (q.reshape(out) for q in (x, y, z))
     zi = zi_field(t, cam_intr, depth_values, depth_min, depth_interval, grid)
     if mode == "plane_mix":
         return plane_mix_resample(volume, zi, x, y)

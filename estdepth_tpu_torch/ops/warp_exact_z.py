@@ -94,17 +94,16 @@ def resample_exact_z(volume: torch.Tensor, zi: torch.Tensor,
                      depth_min: float, depth_interval: float) -> torch.Tensor:
     """The exact-z resample given the zi field: volume [B, D, H, W, C],
     zi [B, D, HW], exact source x, y and DEPTH z [B, D*H*W]
-    -> [B, D, H, W, C]. Plain version of kernel 2."""
+    -> [B, D, H, W, C], or x, y, z [B, D, H, Wo] (a window of output
+    columns) -> [B, D, H, Wo, C]. Plain version of kernel 2."""
     b, d, h, w, c = volume.shape
     a, s = tap_and_slope_fields(volume, zi)
     asx = torch.cat([a, s], -1).reshape(b * d, h, w, 2 * c)
-    as_t = bilinear_sample(asx, x.reshape(b * d, h * w),
-                           y.reshape(b * d, h * w))
-    zi_star = ((z.float() - depth_min) / depth_interval).reshape(b * d,
-                                                                 h * w)
+    as_t = bilinear_sample(asx, x.reshape(b * d, -1), y.reshape(b * d, -1))
+    zi_star = ((z.float() - depth_min) / depth_interval).reshape(b * d, -1)
     out = apply_exact_z_correction(as_t[..., :c], as_t[..., c:], zi_star, d,
                                    volume.dtype)
-    return out.reshape(b, d, h, w, c)
+    return out.reshape(b, d, h, -1, c)
 
 
 def frustum_warp_exact_z(volume: torch.Tensor, t: torch.Tensor,

@@ -90,7 +90,8 @@ def test_port_imports_nothing_of_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for walked in ("parallel/mesh.py", "models/senet.py", "ops/se3.py",
-                   "ops/image_warp.py"):
+                   "ops/image_warp.py", "parallel/spatial.py",
+                   "ops/shard_context.py"):
         assert ROOT / "estdepth_tpu_torch" / walked in files, walked
     bad = [(f.relative_to(ROOT).as_posix(), name)
            for f in files for name in _imports(f)

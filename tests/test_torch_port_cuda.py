@@ -738,3 +738,38 @@ def test_scene_batch_on_the_card_equals_one_scene_at_a_time(dev, tmp_path):
             for b in ("1", "2")]
         assert len(maps[0]) == len(maps[1]) == n
         np.testing.assert_allclose(maps[1], maps[0], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_an_output_window_are_the_whole_columns(dev, dtype):
+    """Kernels 1, 2 and 4 given a width shard's coordinates [B, D, H, Wo]
+    (parallel/spatial.py): `torch.equal` to the whole launch's columns and
+    to the plain version at the window, both instances."""
+    c, w = 32, 32
+    vol, zi, x, y, z, dint = _frustum_inputs(dev, c, w, dtype, rolled=True)
+    b, d, h = vol.shape[:3]
+    src = vol[:, 0].contiguous()
+    whole = {"sweep": plane_warp.plane_sweep_sample(src, x, y),
+             "exact_z": plane_warp_exact_z.exact_z_resample(
+                 vol, zi, x, y, z, 0.5, dint),
+             "plane_mix": plane_mix.plane_mix_resample(vol, zi, x, y)}
+    for lo, hi in ((0, 16), (16, 32), (5, 22)):
+        xs, ys, zs = (q.reshape(b, d, h, w)[..., lo:hi].contiguous()
+                      for q in (x, y, z))
+        before = [k.KERNEL.launches for k in (plane_warp, plane_warp_exact_z,
+                                              plane_mix)]
+        got = {"sweep": plane_warp.plane_sweep_sample(src, xs, ys),
+               "exact_z": plane_warp_exact_z.exact_z_resample(
+                   vol, zi, xs, ys, zs, 0.5, dint),
+               "plane_mix": plane_mix.plane_mix_resample(vol, zi, xs, ys)}
+        assert [k.KERNEL.launches for k in (
+            plane_warp, plane_warp_exact_z, plane_mix)] == [
+            n + 1 for n in before]
+        plain = {"sweep": plane_warp.plane_sweep_sample_plain(src, xs, ys),
+                 "exact_z": resample_exact_z(vol, zi, xs, ys, zs, 0.5, dint),
+                 "plane_mix": plane_mix.plane_mix_resample_plain(
+                     vol, zi, xs, ys)}
+        for name, out in got.items():
+            assert out.shape == (b, d, h, hi - lo, c), name
+            assert torch.equal(out, whole[name][:, :, :, lo:hi]), name
+            assert torch.equal(out, plain[name]), name
