@@ -68,9 +68,11 @@ width): two gloo ranks on the one card, each a process of this script
 (`--spatial-rank R --port P --out DIR`) holding 160 columns, in turns
 with the one-device model: the ESTM stream with its memory carried as
 each rank's K/V columns, a 5-frame Joint window and a plane-mix window,
-the gathered maps against the one-device maps, kernels 1, 2 and 4 at
+the gathered maps against the one-device maps, kernels 1, 2, 3 and 4 at
 each rank's output window against the whole launch's columns, ms per
-window, collectives, bytes, collective share and peak memory per rank.
+window, collectives, bytes, collective share and peak memory per rank;
+the steady ESTM window also through the two-pass sweep (kernel 3 at each
+rank's window, timed there) and through the SENet matching encoder.
 Every phase prints one line; any failure raises and exits non-zero. The last line is {"ok":
 true, "device": {...}}.
 
@@ -208,6 +210,9 @@ DDP_STEPS, DDP_RANK_TIMEOUT = 3, 400
 # limit in seconds, and the gathered maps' tolerance against one device
 SPATIAL_RANKS, SPATIAL_FRAMES, SPATIAL_RANK_TIMEOUT = 2, 6, 300
 SPATIAL_TOL = 1e-3
+# the phase's other models (ModelConfig fields), on the steady ESTM window
+SPATIAL_MODELS = {"spatial_two_pass": {"two_pass_warp": True},
+                  "spatial_senet": {"feature_net": "senet"}}
 # (memory bytes/s, float32 FLOP/s) of the H100 SXM data sheet
 PEAK = {"bytes": 3.35e12, "f32": 67e12}
 
@@ -2523,27 +2528,35 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
     plane-mix window with the memory; then one more ESTM and one more
     Joint window with every collective timed (a device synchronize on
     each side of each, which the other turns do not pay), for the share
-    of a window with a collective in flight. Writes out/rank<r>.json: per
-    sharded call its ms, collectives, bytes, peak memory and kernel
-    launches, and on the timed calls the collective share and each kind's
-    ms per call; on rank 0 the one-device ms and the gathered maps' max
-    |Δ| from the one-device maps."""
+    of a window with a collective in flight; last, the steady ESTM window
+    with the memory through the two-pass plane sweep (kernel 3) and
+    through the SENet matching encoder, each model of seed 0, twice in
+    turns with one device. Writes out/rank<r>.json: per sharded call its
+    ms, collectives, bytes, peak memory and kernel launches, and on the
+    timed calls the collective share and each kind's ms per call; on rank
+    0 the one-device ms by path and the gathered maps' max |Δ| from the
+    one-device maps."""
     set_fp32_numerics()
     dev = init_distributed(f"localhost:{port}", SPATIAL_RANKS, rank,
                            device="cuda:0", backend="gloo")
     mesh = create_mesh(device=dev)
-    model = DepthNetHybrid(ModelConfig(
-        ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
-        resnet=50), seed=0).to(dev)
+
+    def flagship(**cfg):
+        return DepthNetHybrid(ModelConfig(
+            ndepths=NDEPTHS, depth_min=DEPTH_MIN, depth_max=DEPTH_MAX,
+            resnet=50, **cfg), seed=0).to(dev)
+
+    model = flagship()
     imgs, poses, intr = _spatial_inputs(dev)
     shards = WidthShards(mesh, WIDTH)
     mine = shards.shard_width(imgs, 3)
     fns = {False: make_spatial_window_fn(model, mesh),
            True: make_spatial_window_fn(model, mesh, with_memory=True)}
-    res = {"calls": [], "one_device_ms": [], "errors": {}}
+    res = {"calls": [], "one_device_ms": [], "one_device_ms_by_path": {},
+           "errors": {}}
 
-    def sharded(path, frames, memory, timed=False):
-        fn = fns[memory is not None]
+    def sharded(path, frames, memory, timed=False, fn=None):
+        fn = fn or fns[memory is not None]
         fn.stats.reset()
         fn.stats.timed = timed
         torch.distributed.barrier()
@@ -2571,17 +2584,22 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
         return ({k: shards.gather_width(v, -1) for k, v in outs.items()},
                 state)
 
-    def one_device(frames, memory):
+    def one_device(frames, memory, net=None, path=None):
         torch.distributed.barrier()
         if rank != 0:
             return None, None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            outs, state = model(imgs[:, frames], poses[:, frames], intr,
-                                memory=memory, use_est=memory is not None)
+            outs, state = (net or model)(imgs[:, frames], poses[:, frames],
+                                         intr, memory=memory,
+                                         use_est=memory is not None)
         torch.cuda.synchronize()
-        res["one_device_ms"].append(1e3 * (time.perf_counter() - t0))
+        ms = 1e3 * (time.perf_counter() - t0)
+        if path is None:
+            res["one_device_ms"].append(ms)
+        else:
+            res["one_device_ms_by_path"].setdefault(path, []).append(ms)
         return outs, state
 
     def compare(name, got, want):
@@ -2628,15 +2646,74 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
     got, _ = sharded("spatial_plane_mix", last, memories["sharded"])
     want, _ = one_device(last, memories["one"])
     compare("plane_mix", got, want)
+    # the two-pass sweep (kernel 3 at each rank's window) and the SENet
+    # encoder, each on the steady window with the stream's memory: one,
+    # sharded, sharded, one (the first turns pay cuDNN's set-up)
+    for path, cfg in SPATIAL_MODELS.items():
+        net = flagship(**cfg)
+        fn = make_spatial_window_fn(net, mesh, with_memory=True)
+        for turn in ("one", "sharded", "sharded", "one"):
+            if turn == "sharded":
+                got, _ = sharded(path, last, memories["sharded"], fn=fn)
+            else:
+                want, _ = one_device(last, memories["one"], net, path)
+        compare(path[len("spatial_"):], got, want)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     shutdown()
 
 
-def _spatial_kernel_windows() -> dict:
-    """Kernels 1, 2 and 4 at each rank's output columns of the ESTM step's
-    shapes, both instances: `torch.equal` to the whole launch's columns
-    and to the plain version on the same window coordinates."""
+def _two_pass_windows(src, rot, trans, dv, x, y) -> tuple[dict, dict]:
+    """Kernel 3 at each rank's output columns of the ESTM step's sweep,
+    both instances: the window's line coefficients (`columns=`) bit-equal
+    to the whole call's columns, the kernel `torch.equal` to the whole
+    launch's columns and to the plain version; each window timed in turns
+    with the whole launch, beside the window's bound (its coefficients,
+    coordinates and output, and the whole source map). Returns
+    (equalities, timings by rank and instance)."""
+    b, h, w, _ = src.shape
+    d = dv.shape[1]
+    p = b * d
+    ab = warp.plane_sweep_line_coeffs(rot, trans, dv, w)
+    xs, ys = x.reshape(p, h * w), y.reshape(p, h * w)
+    equal, timed = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        s = src.to(dtype)
+        whole = two_pass.two_pass_resample(s, ab, xs, ys, d)
+        for r, bounds in enumerate(shard_bounds(WIDTH, SPATIAL_RANKS)):
+            lo, hi = (c // 4 for c in bounds)
+            ab_w = warp.plane_sweep_line_coeffs(rot, trans, dv, w, (lo, hi))
+            xw, yw = (q.reshape(p, h, w)[..., lo:hi].reshape(p, -1)
+                      .contiguous() for q in (xs, ys))
+
+            def window():
+                return two_pass.two_pass_resample(s, ab_w, xw, yw, d)
+
+            got = window()
+            key = f"two_pass_resample_{str(dtype)[6:]}_rank{r}"
+            equal[key] = {
+                "coefficients": torch.equal(ab_w, ab[..., lo:hi]),
+                "whole": torch.equal(got, whole[:, :, lo:hi]),
+                "plain": torch.equal(got, two_pass.two_pass_resample_plain(
+                    s, ab_w, xw, yw, d))}
+            ms, whole_ms = turns_ms(
+                window, lambda: two_pass.two_pass_resample(s, ab, xs, ys, d))
+            out_numel = got.numel()
+            bound, by = bound_ms(nbytes(s, ab_w, xw, yw, got),
+                                 out_numel * 9 + out_numel // s.shape[-1] * 24)
+            timed.setdefault(f"rank{r}", {})[str(dtype)[6:]] = {
+                "shape": list(got.shape), "ms": ms, "bound_ms": bound,
+                "bound_by": by, "bound_share": bound / ms,
+                "whole_ms_same_run": whole_ms}
+    return equal, timed
+
+
+def _spatial_kernel_windows() -> tuple[dict, dict]:
+    """Kernels 1, 2, 3 and 4 at each rank's output columns of the ESTM
+    step's shapes, both instances: `torch.equal` to the whole launch's
+    columns and to the plain version on the same window coordinates;
+    kernel 3 also timed there (`_two_pass_windows`). Returns (equalities,
+    kernel 3's timings)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     poses, k4, dv = _scene_geometry(dev)
@@ -2673,9 +2750,13 @@ def _spatial_kernel_windows() -> dict:
                 key = f"{name}_{str(dtype)[6:]}_rank{r}"
                 equal[key] = {"whole": torch.equal(got, whole[..., lo:hi, :]),
                               "plain": torch.equal(got, plain(window))}
+    rot, trans = geometry.relative_projection(proj[[0, 2]], proj[[1, 1]])
+    two_pass_equal, two_pass_timed = _two_pass_windows(
+        src, rot, trans, dv.expand(2, d), sx, sy)
+    equal.update(two_pass_equal)
     if not all(all(v.values()) for v in equal.values()):
         raise AssertionError(f"kernels at a rank's window: {equal}")
-    return equal
+    return equal, two_pass_timed
 
 
 def phase_spatial_shard(rows: list[dict]) -> None:
@@ -2686,15 +2767,18 @@ def phase_spatial_shard(rows: list[dict]) -> None:
     DIR`), 160 columns each, in turns with the one-device model: the ESTM
     stream (6 frames: 4 windows, a 2-entry memory carried as each rank's
     K/V columns), one 5-frame Joint window without memory, one plane-mix
-    window. The gathered maps (4 depth scales and both probabilities)
-    within SPATIAL_TOL of the one-device maps; kernels 1, 2 and 4 at each
-    rank's output window `torch.equal` to the whole launch's columns and
-    to their plain versions on the window's coordinates, both instances.
-    Launches of both ranks count under the `spatial_*` paths; ms per
-    window come from untimed turns, the collective share from one timed
-    ESTM and one timed Joint window."""
+    window, and the steady ESTM window of the two-pass sweep's model and
+    of the SENet model (SPATIAL_MODELS). The gathered maps (4 depth
+    scales and both probabilities) within SPATIAL_TOL of the one-device
+    maps; kernels 1, 2, 3 and 4 at each rank's output window
+    `torch.equal` to the whole launch's columns and to their plain
+    versions on the window's coordinates, both instances, and kernel 3
+    timed there against the window's bound (its row's
+    "spatial_window"). Launches of both ranks count under the
+    `spatial_*` paths; ms per window come from untimed turns, the
+    collective share from one timed ESTM and one timed Joint window."""
     t_phase = time.perf_counter()
-    windows_equal = _spatial_kernel_windows()
+    windows_equal, two_pass_windows = _spatial_kernel_windows()
     port = _free_port()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as out:
         procs = [subprocess.Popen(
@@ -2724,13 +2808,18 @@ def phase_spatial_shard(rows: list[dict]) -> None:
     if not worst <= SPATIAL_TOL:
         raise AssertionError(f"sharded vs one-device maps: {errors}")
     # per rank: kernel 1 once per window, kernel 2 once per EST window of
-    # the stream, kernel 4 once in the plane-mix window
+    # the stream, kernel 4 once in the plane-mix window; the two-pass
+    # model's two windows sweep through kernel 3 instead of kernel 1
     windows = SPATIAL_FRAMES - LWINDOW + 1
     expected = {"spatial_estm": {"plane_sweep_warp": windows,
                                  "frustum_warp_exact_z": windows - 1},
                 "spatial_joint": {"plane_sweep_warp": 2},
                 "spatial_plane_mix": {"plane_sweep_warp": 1,
-                                      "frustum_warp_plane_mix": 1}}
+                                      "frustum_warp_plane_mix": 1},
+                "spatial_two_pass": {"two_pass_resample": 2,
+                                     "frustum_warp_exact_z": 2},
+                "spatial_senet": {"plane_sweep_warp": 2,
+                                  "frustum_warp_exact_z": 2}}
     launches = {}
     for path, want in expected.items():
         per_rank = [{k: sum(c["launches"][k] for c in r["calls"]
@@ -2744,11 +2833,19 @@ def phase_spatial_shard(rows: list[dict]) -> None:
     for row in rows:
         for path, counts in launches.items():
             row["launches_by_path"][path] = counts[row["name"]]
+        if row["name"] == "two_pass_resample":
+            row["spatial_window"] = two_pass_windows
     # each sharded call on both ranks; ms of the slower rank
     pairs = list(zip(*(r["calls"] for r in ranks)))
     ms = {path: [max(c["ms"] for c in pair) for pair in pairs
                  if pair[0]["path"] == path] for path in expected}
     one = ranks[0]["one_device_ms"]  # stream, Joint twice, plane-mix
+    # the other models' second turns (the first pay cuDNN's set-up)
+    models = {path: {"ms_sharded": ms[path],
+                     "ms_one_device": ranks[0]["one_device_ms_by_path"][path],
+                     "ratio": ms[path][1]
+                     / ranks[0]["one_device_ms_by_path"][path][1]}
+              for path in SPATIAL_MODELS}
     steady = slice(2, windows)  # EST on, after the first EST window
     last = {pair[0]["path"]: pair[0] for pair in pairs}  # rank 0's
     # the timed turns (every collective synchronized on each side)
@@ -2764,7 +2861,7 @@ def phase_spatial_shard(rows: list[dict]) -> None:
         joint_ms_sharded=ms["spatial_joint"],
         joint_ms_one_device=one[windows:windows + 2],
         plane_mix_ms_sharded=ms["spatial_plane_mix"],
-        plane_mix_ms_one_device=one[-1:],
+        plane_mix_ms_one_device=one[-1:], models=models,
         collectives_per_window={p: last[p]["collectives"] for p in expected},
         bytes_per_window={p: last[p]["bytes"] for p in expected},
         collective_share={p: [c["collective_share"] for c in pair]

@@ -28,6 +28,14 @@
 // version (ops/cuda/two_pass.two_pass_resample_plain), which keeps the two
 // passes. Rows pass 1 would resample and pass 2 never reads are skipped.
 //
+// Output window. The line coefficients and coordinates name the output
+// grid: ab [P, 2, Wo] and x/y [P, H*Wo] are Wo columns, the source's own W
+// or a width shard's window of them (parallel/spatial.py), whose
+// coefficients are those of the columns' global indices. A voxel's column
+// w = voxel % Wo indexes ab; its taps address the whole source map, whose
+// rows stride by W. So a window is exactly those columns of the whole
+// output, as kernel 1's.
+//
 // Bound on the card: bytes. At the training window's plane sweep (6 maps
 // of [64, 80, 32] f32, 64 planes each) it writes a 252 MB output and reads
 // 16 MB of x/y, 0.25 MB of line coefficients and 3.9 MB of source: about
@@ -50,16 +58,16 @@ namespace {
 
 template <typename Index>
 struct TwoPassTaps {
-  const float* ab;  // [P, 2, W]: a then b of each plane
-  int H, W, CV;
+  const float* ab;  // [P, 2, Wo]: a then b of each plane's output columns
+  int H, W, Wo, CV;  // the source grid H x W; Wo output columns
 
   __device__ __forceinline__ sweep::Taps<Index> operator()(
       int plane, long long voxel, float x, float y) const {
     sweep::Taps<Index> t;
     if (sweep::inside(x, y, H, W)) {
-      const int w = static_cast<int>(static_cast<Index>(voxel) % W);
-      const float* a = ab + static_cast<long long>(plane) * 2 * W + w;
-      const float aw = __ldg(a), bw = __ldg(a + W);
+      const int w = static_cast<int>(static_cast<Index>(voxel) % Wo);
+      const float* a = ab + static_cast<long long>(plane) * 2 * Wo + w;
+      const float aw = __ldg(a), bw = __ldg(a + Wo);
       int y0, xu, xl;
       sweep::corner(y, H, y0, t.fy);
       sweep::corner(__fadd_rn(__fmul_rn(aw, static_cast<float>(y0)), bw), W,
@@ -81,8 +89,8 @@ two_pass_resample_kernel(const typename vec16::Vec<T>::Raw* __restrict__ src,
                          const float* __restrict__ xs,
                          const float* __restrict__ ys,
                          typename vec16::Vec<T>::Raw* __restrict__ out,
-                         sweep::Shape s) {
-  const TwoPassTaps<Index> taps{ab, s.H, s.W, s.CV};
+                         sweep::Shape s, int Wo) {
+  const TwoPassTaps<Index> taps{ab, s.H, s.W, Wo, s.CV};
   sweep::gather_volume<T, true, CVT, Index>(src, xs, ys, out, s, taps);
 }
 
@@ -93,22 +101,24 @@ struct Launch {
   const float *ab, *xs, *ys;
   Raw* out;
   sweep::Shape s;
+  int Wo;
   unsigned blocks;
   cudaStream_t stream;
 
   template <int CVT, typename Index>
   void run() const {
     two_pass_resample_kernel<T, CVT, Index>
-        <<<blocks, sweep::kThreads, 0, stream>>>(src, ab, xs, ys, out, s);
+        <<<blocks, sweep::kThreads, 0, stream>>>(src, ab, xs, ys, out, s,
+                                                 Wo);
   }
 };
 
 template <typename T>
 int launch(const void* src, const void* ab, const void* x, const void* y,
-           void* out, int P, int H, int W, int C, int planes_per_map,
+           void* out, int P, int H, int W, int Wo, int C, int planes_per_map,
            void* stream) {
   using Raw = typename vec16::Vec<T>::Raw;
-  const long long voxels = static_cast<long long>(H) * W;
+  const long long voxels = static_cast<long long>(H) * Wo;
   if (P == 0 || voxels == 0 || C == 0) return 0;
   sweep::Shape s;
   const unsigned blocks = sweep::plan(P, voxels, s);
@@ -121,29 +131,30 @@ int launch(const void* src, const void* ab, const void* x, const void* y,
                       static_cast<const float*>(ab),
                       static_cast<const float*>(x),
                       static_cast<const float*>(y), static_cast<Raw*>(out), s,
-                      blocks, static_cast<cudaStream_t>(stream)};
-  sweep::dispatch(s.CV, voxels * s.CV, run);
+                      Wo, blocks, static_cast<cudaStream_t>(stream)};
+  sweep::dispatch(s.CV, static_cast<long long>(H) * W * s.CV, run);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// src [M, H, W, C], ab [P, 2, W], x/y [P, H*W] float32, out [P, H, W, C]
-// of src's type; contiguous, C a multiple of 4 (float32) or 8 (bfloat16),
-// H, W >= 2, P == M * planes_per_map (checked by the Python wrapper).
-// Launches on `stream` and returns cudaGetLastError().
+// src [M, H, W, C], ab [P, 2, Wo], x/y [P, H*Wo] float32, out
+// [P, H, Wo, C] of src's type; contiguous, C a multiple of 4 (float32) or
+// 8 (bfloat16), H, W >= 2, P == M * planes_per_map (checked by the Python
+// wrapper). Launches on `stream` and returns cudaGetLastError().
 extern "C" int two_pass_resample_f32(const void* src, const void* ab,
                                      const void* x, const void* y, void* out,
-                                     int P, int H, int W, int C,
+                                     int P, int H, int W, int Wo, int C,
                                      int planes_per_map, void* stream) {
-  return launch<float>(src, ab, x, y, out, P, H, W, C, planes_per_map,
+  return launch<float>(src, ab, x, y, out, P, H, W, Wo, C, planes_per_map,
                        stream);
 }
 
 extern "C" int two_pass_resample_bf16(const void* src, const void* ab,
                                       const void* x, const void* y,
-                                      void* out, int P, int H, int W, int C,
-                                      int planes_per_map, void* stream) {
-  return launch<__nv_bfloat16>(src, ab, x, y, out, P, H, W, C,
+                                      void* out, int P, int H, int W, int Wo,
+                                      int C, int planes_per_map,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(src, ab, x, y, out, P, H, W, Wo, C,
                                planes_per_map, stream);
 }

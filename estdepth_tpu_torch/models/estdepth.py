@@ -20,8 +20,8 @@ and the returned key/value state is in the compute dtype.
 
 Inside `parallel.spatial.width_sharded` the frames, matching features and
 memory volumes are one rank's width shard and so are the outputs
-(parallel/spatial.make_spatial_window_fn): eval only, and not with the
-SENet encoder or the two-pass plane sweep yet (both raise).
+(parallel/spatial.make_spatial_window_fn): eval only, with either
+matching encoder and either plane sweep.
 
 The module rests in eval mode (BatchNorm on its running statistics).
 `forward(..., train=True)` switches it to train mode for that call, as the
@@ -223,12 +223,9 @@ class DepthNetHybrid(nn.Module):
         if use_est is None:
             use_est = self.cfg.est_transformer and (train
                                                     or memory is not None)
-        if shard_context.current() is not None:
-            if train:
-                raise ValueError("a width-sharded forward is eval only "
-                                 "(train=False), as the JAX function")
-            if self.cfg.feature_net == "senet":
-                shard_context.refuse_deferred("senet")
+        if shard_context.current() is not None and train:
+            raise ValueError("a width-sharded forward is eval only "
+                             "(train=False), as the JAX function")
         if train and use_est and self.cfg.use_fused_attention:
             raise ValueError(
                 "use_fused_attention cannot train: the attention kernel is "

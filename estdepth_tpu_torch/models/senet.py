@@ -37,6 +37,7 @@ from estdepth_tpu_torch.models.layers import (
     Conv2d, Linear, conv_bn, he_conv,
 )
 from estdepth_tpu_torch.models.psm import pyramid
+from estdepth_tpu_torch.ops import shard_context
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, pad: int = 0,
@@ -56,7 +57,9 @@ class SEModule(nn.Module):
     """Global mean -> 1x1 squeeze -> ReLU -> 1x1 excite -> sigmoid gate
     (senet.py:88-107). The mean accumulates in float32 and is rounded once
     to the input's dtype, as jnp.mean does; the gate multiplies in the
-    input's dtype."""
+    input's dtype. On a width shard (parallel/spatial.py) the float32
+    per-channel sums are all-reduced over every rank's columns, divided by
+    H times the whole width and rounded once."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -64,8 +67,14 @@ class SEModule(nn.Module):
         self.fc2 = Conv2d(channels // reduction, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = x.float().mean((2, 3), keepdim=True).to(x.dtype)
-        g = self.fc2(F.relu(self.fc1(g)))
+        shards = shard_context.current()
+        if shards is None:
+            g = x.float().mean((2, 3), keepdim=True)
+        else:
+            h, w = x.shape[2:]
+            g = shards.all_reduce(x.float().sum((2, 3), keepdim=True)) / (
+                h * shards.full_width(w))
+        g = self.fc2(F.relu(self.fc1(g.to(x.dtype))))
         return x * torch.sigmoid(g)
 
 

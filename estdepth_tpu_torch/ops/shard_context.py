@@ -15,9 +15,6 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
-# the modes the sharded forward does not run yet: their ROADMAP.md entries
-DEFERRED = {"two_pass_warp": 2, "senet": 3}
-
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "estdepth_width_shards", default=None)
 
@@ -47,10 +44,3 @@ def conv_halo(kernel: int, stride: int, padding: int,
     stride)."""
     return padding, max(0, (kernel - 1) * dilation - padding - (stride - 1))
 
-
-def refuse_deferred(mode: str) -> None:
-    """Raise for a mode of DEFERRED, which the width-sharded forward does
-    not run yet, naming its queue entry."""
-    raise NotImplementedError(
-        f"{mode} does not run width-sharded yet: ROADMAP.md §A, item "
-        f"{DEFERRED[mode]}")

@@ -25,8 +25,9 @@ rank's width shard. A sample lands anywhere in a row, so both warps gather
 the sampled maps or volume whole (one all_gather), compute the coordinates
 of this rank's own output columns only (the zi field of the frustum warps
 on the whole source grid) and have the kernels write those columns:
-coordinates [B, D, H, W_r] name an output window (ops/cuda/*.py). The
-two-pass route is not sharded (`shard_context.refuse_deferred`).
+coordinates [B, D, H, W_r] name an output window (ops/cuda/*.py), and
+the two-pass route's line coefficients are those of the rank's global
+columns.
 """
 
 from __future__ import annotations
@@ -77,14 +78,16 @@ def plane_sweep_coords(src_proj: torch.Tensor, ref_proj: torch.Tensor,
 
 
 def plane_sweep_line_coeffs(rot: torch.Tensor, trans: torch.Tensor,
-                            depth_values: torch.Tensor,
-                            width: int) -> torch.Tensor:
+                            depth_values: torch.Tensor, width: int,
+                            columns=None) -> torch.Tensor:
     """Line coefficients [B*D, 2, W] of the D plane homographies
-    H_d = d * rot + trans e3^T of each map (homo_utils.py:469-483)."""
+    H_d = d * rot + trans e3^T of each map (homo_utils.py:469-483); with
+    `columns` (start, stop) those of those target columns only,
+    [B*D, 2, stop - start], bit for bit the whole call's columns."""
     hmat = depth_values[:, :, None, None].float() * rot.float()[:, None]
     hmat = torch.cat([hmat[..., :2],
                       hmat[..., 2:] + trans.float()[:, None, :, None]], -1)
-    return line_coeffs(hmat.reshape(-1, 3, 3), width)
+    return line_coeffs(hmat.reshape(-1, 3, 3), width, columns)
 
 
 def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
@@ -95,24 +98,20 @@ def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
     are 0. src_proj / ref_proj: [B, 4, 4] (geometry.camera_projection).
     `two_pass` samples through the fused two-pass resample (kernel 3)
     instead of the exact bilinear sample (kernel 1)."""
-    b, h, w, c = src_feat.shape
+    b, h, w, c = src_feat.shape  # w: this rank's output columns
     d = depth_values.shape[1]
     shards = shard_context.current()
+    columns = None
     if shards is not None:
-        if two_pass:
-            shard_context.refuse_deferred("two_pass_warp")
         columns = shards.columns(w)
         src_feat = shards.gather_width(src_feat, 2)
-        _, _, x, y = _plane_sweep_geometry(src_proj, ref_proj, depth_values,
-                                           h, src_feat.shape[2], columns)
-        shape = (b, d, h, w)  # this rank's output columns
-        return plane_sweep_sample(src_feat, x.reshape(shape),
-                                  y.reshape(shape))
+    full = src_feat.shape[2]
     rot, trans, x, y = _plane_sweep_geometry(src_proj, ref_proj,
-                                             depth_values, h, w)
-    if not two_pass:
-        return plane_sweep_sample(src_feat, x, y)
-    ab = plane_sweep_line_coeffs(rot, trans, depth_values, w)
+                                             depth_values, h, full, columns)
+    if not two_pass:  # coordinates [B, D, H, w] name the output grid
+        return plane_sweep_sample(src_feat, x.reshape(b, d, h, w),
+                                  y.reshape(b, d, h, w))
+    ab = plane_sweep_line_coeffs(rot, trans, depth_values, full, columns)
     out = two_pass_resample(src_feat, ab, x.reshape(b * d, h * w),
                             y.reshape(b * d, h * w), planes_per_map=d)
     return out.reshape(b, d, h, w, c)

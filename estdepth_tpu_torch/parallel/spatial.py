@@ -14,14 +14,15 @@ context's leaf module, which the layers import without this package):
     (models/layers.py) exchange halo columns with their neighbours, zeros
     (the max-pool: -inf) past the image's edges;
   * GroupNorm (models/layers.py) all-reduces per-sample sums: the mean
-    first, then the centred second moment;
+    first, then the centred second moment; the SE gates of the SENet
+    matching encoder (models/senet.py) all-reduce their per-channel sums;
   * the PSM pyramid (models/psm.py) all-reduces its window sums, runs the
     branches on the replicated pooled maps and resizes back to this rank's
     columns only;
   * the plane-sweep and frustum warps (ops/warp.py) gather the sampled
     maps or volumes whole, since a sample lands anywhere in a row, and
-    compute the coordinates and the kernels' output of this rank's columns
-    only;
+    compute the coordinates (the two-pass sweep's line coefficients too)
+    and the kernels' output of this rank's columns only;
   * everything else of the eval forward (eval-mode BatchNorm, nearest
     upsampling, the softargmin over planes, the per-voxel attention) is
     local once the shards of every scale are aligned.

@@ -773,3 +773,30 @@ def test_kernels_at_an_output_window_are_the_whole_columns(dev, dtype):
             assert out.shape == (b, d, h, hi - lo, c), name
             assert torch.equal(out, whole[name][:, :, :, lo:hi]), name
             assert torch.equal(out, plain[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_kernel_at_an_output_window_is_the_whole_columns(dev,
+                                                                  dtype):
+    """Kernel 3 given a width shard's line coefficients [P, 2, Wo] and
+    coordinates [P, H*Wo] (parallel/spatial.py): `torch.equal` to the
+    whole launch's columns and to the plain version at the window, both
+    instances, at windows of one column, a ragged middle and both
+    halves."""
+    ppm, m, h, w, c = 6, 2, 24, 32, 16
+    src, ab, x, y = _two_pass_inputs(dev, ppm, m=m, h=h, w=w, c=c)
+    src = src.to(dtype)
+    p = m * ppm
+    whole = two_pass.two_pass_resample(src, ab, x, y, ppm)
+    assert (whole == 0).any() and (whole != 0).any()
+    for lo, hi in ((0, 16), (16, 32), (5, 22), (31, 32)):
+        ab_w = ab[..., lo:hi].contiguous()
+        xs, ys = (q.reshape(p, h, w)[..., lo:hi].reshape(p, -1).contiguous()
+                  for q in (x, y))
+        before = two_pass.KERNEL.launches
+        got = two_pass.two_pass_resample(src, ab_w, xs, ys, ppm)
+        assert two_pass.KERNEL.launches == before + 1
+        assert got.shape == (p, h, hi - lo, c) and got.dtype == dtype
+        assert torch.equal(got, whole[:, :, lo:hi]), (lo, hi)
+        assert torch.equal(got, two_pass.two_pass_resample_plain(
+            src, ab_w, xs, ys, ppm)), (lo, hi)

@@ -10,25 +10,34 @@ configuration of tests/test_torch_port_common.py (64x96, 8 planes,
 ResNet-18), its weights from `model_pair`, so both packages compute the
 same function. Held:
   * each shard-aware primitive (halo convolutions 2-D and 3-D at stride 1
-    and 2, dilation 2 and the 7x7 stride-2 stem, the -inf max-pool,
-    GroupNorm, the PSM pyramid) gathered over the ranks against its
-    unsharded call at atol 1e-6; shard_width / gather_width round trips
-    exact;
+    and 2, dilation 2, grouped (SENet's conv2) and the 7x7 stride-2 stem,
+    the -inf max-pool,
+    GroupNorm, the SE gate, the PSM pyramid) gathered over the ranks
+    against its unsharded call at atol 1e-6; shard_width / gather_width
+    round trips exact;
+  * the sharded two-pass plane sweep (kernel 3's plain version at each
+    rank's output window, the line coefficients of its global columns)
+    against the JAX package's backend="pallas" under
+    ESTDEPTH_FUSED_WARP=1 (the Pallas interpreter) at
+    tests/test_torch_port_two_pass.py's 1e-4 x scale;
   * the sharded forward without and with a 2-entry memory (seeded as
     tests/test_spatial_shard.py seeds one; with memory in each of the
-    three frustum modes) against the port's unsharded forward (depth 1e-4
-    m, probabilities 1e-5; measured up to 5.1e-5 and 7.9e-6: a CPU
+    three frustum modes and with the two-pass sweep; the SENet model
+    without and with memory) against the port's unsharded forward (depth
+    1e-4 m, probabilities 1e-5; measured up to 5.1e-5 and 7.9e-6: a CPU
     convolution may sum a narrower input in another order), its
-    collectives counted, and against JAX's unsharded model.apply at
-    PARITY.md's full-forward row (5e-3; measured 9.5e-6), which JAX's
-    own slow test holds its sharded function to;
+    collectives counted, and the PSM and SENet models against JAX's
+    unsharded model.apply at PARITY.md's full-forward row (5e-3;
+    measured 9.5e-6), which JAX's own slow test holds its sharded
+    function to, and the SENet model with memory at the chain row (8e-3,
+    tests/test_torch_port_senet.py's);
   * a 3-window ESTM chain, the memory pushed from the sharded state,
     against the same chain in JAX at the chain row (8e-3; measured
     1.4e-5);
   * one bf16 forward: sharded within twice bf16's own distance from
     float32 of the unsharded bf16 forward (PR 8's rule; measured 0.68 of
     that distance);
-  * the layout's limit (ranks <= W / 32) and the deferred modes' refusals.
+  * the layout's limit (ranks <= W / 32), and the eval-only refusal.
 The `slow` test holds the port's sharded forward against the JAX
 package's own make_spatial_window_fn on 2 of the conftest's CPU devices.
 """
@@ -45,12 +54,13 @@ import pytest
 import torch
 
 from estdepth_tpu.models import ESTMemory as JaxMemory
+from estdepth_tpu.ops import geometry as jgeo
+from estdepth_tpu.ops import warp as jwarp
 from estdepth_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from estdepth_tpu.parallel.spatial import (
     make_spatial_window_fn as jax_spatial_window_fn,
 )
 from estdepth_tpu_torch.config import ModelConfig
-from estdepth_tpu_torch.models import layers
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.models.psm import pyramid
@@ -60,12 +70,17 @@ from test_torch_port_common import (  # noqa: F401
     DMAX, DMIN, H, ND, W, model_pair, one_torch_thread, scene_arrays,
 )
 from test_torch_port_parallel import _env, _finish, _free_port, _start
-from torch_port_spatial_worker import FORWARD_MODES, PRIMITIVES, ROUND_TRIPS
+from test_torch_port_two_pass import _pose
+from torch_port_spatial_worker import FORWARD_CASES, PRIMITIVES, ROUND_TRIPS
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (2, 3)
 FRAMES = 5  # the chain's 3 windows of 3 frames
+SENET = dict(feature_net="senet")
+# the forward cases held against JAX's model.apply, and their tolerances
+JAX_CASES = {"forward": 5e-3, "forward_memory": 5e-3, "forward_senet": 5e-3,
+             "forward_senet_memory": 8e-3}
 
 
 def _launch(world: int, inputs: str, out: str, *flags) -> list:
@@ -103,6 +118,21 @@ def _primitive_inputs(rng):
             **{f"round_trip_{i}": torch.from_numpy(
                 rng.normal(size=shape).astype(np.float32))
                for i, (shape, _) in enumerate(ROUND_TRIPS)}}
+
+
+def _two_pass_sweep_inputs(rng):
+    """A plane sweep of a [1, 16, 24, 8] map (1/4 of the image's width)
+    over 16 planes under a small rotation, as
+    tests/test_torch_port_two_pass.py sweeps one: source lines cross rows
+    and some samples leave the image."""
+    h, w = 16, W // 4
+    intr = np.array([[[18.0, 0, (w - 1) / 2], [0, 18.0, (h - 1) / 2],
+                      [0, 0, 1]]], np.float32)
+    pose = _pose(tx=0.04, ty=-0.03, tz=0.06, yaw=0.015, pitch=-0.01)
+    return {"feat": rng.normal(size=(1, h, w, 8)).astype(np.float32),
+            "src_proj": np.array(jgeo.camera_projection(intr, pose)),
+            "ref_proj": np.array(jgeo.camera_projection(intr, _pose())),
+            "dvals": np.linspace(0.5, 8.0, 16, dtype=np.float32)[None]}
 
 
 def _memory(poses, rng):
@@ -157,14 +187,21 @@ def runs(tmp_path_factory):
     of the same inputs."""
     tmp = tmp_path_factory.mktemp("spatial")
     jm, variables, tm = model_pair(views=3)
+    jm_se, variables_se, tm_se = model_pair(views=3, jax_kwargs=SENET,
+                                            **SENET)
     imgs, poses, intr = scene_arrays(FRAMES)
     imgs, poses, intr = imgs[None], poses[None], intr[None]
     rng = np.random.default_rng(0)
     memory = _memory(poses, rng)
-    torch.save({"weights": tm.state_dict(), "imgs": torch.from_numpy(imgs),
+    sweep = _two_pass_sweep_inputs(rng)
+    torch.save({"weights": tm.state_dict(),
+                "senet_weights": tm_se.state_dict(),
+                "imgs": torch.from_numpy(imgs),
                 "poses": torch.from_numpy(poses),
                 "intr": torch.from_numpy(intr),
                 "memory": {k: torch.from_numpy(v) for k, v in memory.items()},
+                "two_pass_sweep": {k: torch.from_numpy(v)
+                                   for k, v in sweep.items()},
                 **_primitive_inputs(rng)}, tmp / "inputs.pt")
     launched = {}
     for world in WORLDS:
@@ -181,7 +218,20 @@ def runs(tmp_path_factory):
             v, i, p, k, memory=m, use_est=True, train=False))
         jax_out = {"forward": _np(apply(variables, *win)[0]),
                    "forward_memory": _np(apply_mem(
-                       variables, *win, _jax_memory(memory))[0])}
+                       variables, *win, _jax_memory(memory))[0]),
+                   "forward_senet": _np(jax.jit(lambda v, i, p, k: jm_se.apply(
+                       v, i, p, k, use_est=False, train=False))(
+                       variables_se, *win)[0]),
+                   "forward_senet_memory": _np(jax.jit(
+                       lambda v, i, p, k, m: jm_se.apply(
+                           v, i, p, k, memory=m, use_est=True,
+                           train=False))(variables_se, *win,
+                                         _jax_memory(memory))[0])}
+        with pytest.MonkeyPatch.context() as mp:  # the fused Pallas kernel
+            mp.setenv("ESTDEPTH_FUSED_WARP", "1")
+            jax_out["two_pass_sweep"] = np.asarray(jwarp.plane_sweep_warp(
+                sweep["feat"], sweep["src_proj"], sweep["ref_proj"],
+                sweep["dvals"], backend="pallas"))
         jmem = JaxMemory.create(1, 2, ND, H // 4, W // 4)
         chain = []
         for i in range(3):
@@ -192,12 +242,12 @@ def runs(tmp_path_factory):
             chain.append(np.asarray(out["depth"]))
         jax_out["chain"] = np.stack(chain, 1)
         # ---- the port, unsharded -----------------------------------------
-        port = {"forward": _np(_port_forward(tm, *win))}
-        for case, mode in FORWARD_MODES.items():
-            if mode is not None:
-                port[case] = _np(_port_forward(
-                    _port_model(tm, frustum_mode=mode), *win,
-                    _port_memory(memory)))
+        port = {}
+        for case, (cfg, with_memory) in FORWARD_CASES.items():
+            model = _port_model(tm_se if cfg.get("feature_net") else tm,
+                                **cfg)
+            port[case] = _np(_port_forward(
+                model, *win, _port_memory(memory) if with_memory else None))
         port["bf16"] = _np(_port_forward(
             _port_model(tm, compute_dtype="bfloat16"), *win,
             _port_memory(memory, torch.bfloat16)))
@@ -233,12 +283,38 @@ def test_primitive_matches_its_unsharded_call(runs, world, name):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_sharded_two_pass_sweep_matches_pallas(runs, world):
+    """Kernel 3's plain version at each rank's output window, gathered,
+    against the JAX package's fused two-pass Pallas kernel on the whole
+    map (tests/test_torch_port_two_pass.py's tolerance)."""
+    got = runs["sharded"][world]["primitives"]["two_pass_sweep"].numpy()
+    want = runs["jax"]["two_pass_sweep"]
+    assert got.shape == want.shape == (1, 16, 16, W // 4, 8)
+    assert (want == 0).all(-1).any() and (want != 0).all(-1).any()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_shard_and_gather_round_trips(runs, world):
     assert runs["sharded"][world]["primitives"]["round_trips"] == [True] * len(
         ROUND_TRIPS)
 
 
-@pytest.mark.parametrize("case", FORWARD_MODES)
+def _expected_calls(cfg: dict, est: bool) -> dict:
+    """Collectives of one window: a halo for every convolution (and the
+    max-pool) wider than one column, 2 more in EST; a gather of the
+    matching features, and of the K/V volumes in EST; the pyramid's one
+    all_reduce, the 12 SE gates' of the SENet encoder and the 3
+    GroupNorms' two each in EST. The SENet encoder has 17 convolutions
+    wider than a column (its stem's 3, the 12 blocks' 3x3, layer2's 3x3
+    shortcut, the head's 3x3) where PSM's has 54."""
+    senet = cfg.get("feature_net") == "senet"
+    return {"halo": (58 if senet else 95) + 2 * est, "gather": 1 + est,
+            "all_reduce": 1 + 12 * senet + 6 * est}
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES)
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_forward_matches_the_unsharded_port(runs, world, case):
     got = _np(runs["sharded"][world][case])
@@ -252,25 +328,22 @@ def test_sharded_forward_matches_the_unsharded_port(runs, world, case):
     for k in ("key", "value"):  # the state pushed into the memory
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4,
                                    err_msg=k)
-    est = FORWARD_MODES[case] is not None
+    cfg, est = FORWARD_CASES[case]
     if est:  # EST fused the memory
         assert np.abs(got["depth"][:, :, 2] - got["depth"][:, :, 3]).max(
             ) > 1e-3
-    # halos of every convolution, a gather of the matching features (and
-    # of the K/V volumes), the pyramid's sums (and the 3 GroupNorms' two)
     calls = runs["sharded"][world][case]["calls"]
-    assert calls == {"halo": 97 if est else 95, "gather": 2 if est else 1,
-                     "all_reduce": 7 if est else 1}, calls
+    assert calls == _expected_calls(cfg, est), calls
 
 
-@pytest.mark.parametrize("case", ["forward", "forward_memory"])
+@pytest.mark.parametrize("case", JAX_CASES)
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_forward_matches_jax(runs, world, case):
     got = _np(runs["sharded"][world][case])
     want = runs["jax"][case]
     for k in ("depth", "init_prob", "fused_prob"):
-        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=5e-3,
-                                   err_msg=k)
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=JAX_CASES[case], err_msg=k)
 
 
 def test_sharded_chain_matches_jax(runs):
@@ -320,18 +393,6 @@ def test_one_rank_is_the_unsharded_forward(runs):
         np.testing.assert_allclose(got[k].numpy(), want[k], rtol=0,
                                    atol=1e-5, err_msg=k)
     assert fn.stats.calls == {}  # nothing to exchange
-
-
-@pytest.mark.parametrize("mode", ["two_pass_warp", "senet"])
-def test_deferred_modes_raise_inside_the_context(runs, mode):
-    kwargs = ({"two_pass_warp": True} if mode == "two_pass_warp"
-              else {"feature_net": "senet"})
-    model = DepthNetHybrid(ModelConfig(ndepths=ND, depth_min=DMIN,
-                                       depth_max=DMAX, resnet=18, **kwargs))
-    imgs, poses, intr = (torch.from_numpy(a) for a in runs["window"])
-    fn = spatial.make_spatial_window_fn(model, _one_rank())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A, item"):
-        fn(imgs, poses, intr)
 
 
 def test_sharded_forward_is_eval_only(runs):

@@ -13,11 +13,13 @@ to `DIR/results.pt`. Imports nothing of JAX.
 Cases:
   * primitives: each layer of PRIMITIVES on this rank's columns inside
     `width_sharded` (halo convolutions, the -inf max-pool, GroupNorm,
-    the PSM pyramid), and shard_width / gather_width round trips;
-  * forward, forward_memory: make_spatial_window_fn without and with a
-    2-entry memory (the model of `inputs["weights"]`, 3-frame window);
-    forward_plane_mix, forward_exact: forward_memory with the other two
-    frustum modes (FORWARD_MODES);
+    the SE gate, the PSM pyramid), the two-pass plane sweep
+    (`plane_sweep_warp(two_pass=True)`, kernel 3 at this rank's output
+    window), and shard_width / gather_width round trips;
+  * the FORWARD_CASES: make_spatial_window_fn without and with a 2-entry
+    memory (3-frame window) of the PSM model of `inputs["weights"]` in
+    each frustum mode and with the two-pass sweep, and of the SENet
+    model of `inputs["senet_weights"]`;
   * with --all also chain (3 windows of the ESTM stream, the memory
     pushed from each window's sharded state, the first window without
     EST) and bf16 (forward_memory of the bf16 model).
@@ -35,6 +37,8 @@ from estdepth_tpu_torch.models import layers
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.models.psm import pyramid
+from estdepth_tpu_torch.models.senet import SEModule
+from estdepth_tpu_torch.ops.warp import plane_sweep_warp
 from estdepth_tpu_torch.parallel.mesh import (
     create_mesh, init_distributed, shutdown,
 )
@@ -60,6 +64,8 @@ PRIMITIVES = {
                                    (2, 4, 2, 6)),
     "conv2d_1x1_stride2": (lambda: layers.Conv2d(4, 5, 1, 2, 0),
                            (2, 4, 4, 6)),
+    "conv2d_3x3_grouped": (lambda: layers.Conv2d(8, 8, 3, 1, 1, groups=4),
+                           (2, 8, 6, 24)),
     "conv3d_3x3x3": (lambda: layers.Conv3d(4, 5, 3, 1, 1), (2, 4, 3, 5, 24)),
     "conv3d_3x3x3_stride2": (lambda: layers.Conv3d(4, 5, 3, 2, 1),
                              (2, 4, 4, 6, 48)),
@@ -69,13 +75,22 @@ PRIMITIVES = {
                           (2, 8, 3, 5, 24)),
     "groupnorm_4_groups": (lambda: layers.GroupNorm(4, 8, eps=1e-5),
                            (2, 8, 5, 24)),
+    "se_module": (lambda: SEModule(16, 4), (2, 16, 6, 24)),
 }
 # (shape, dim) of the round trips: a channels-last volume at 1/4 scale,
 # an NCHW map at 1/32 and frames at full width
 ROUND_TRIPS = [((2, 3, 4, 24, 5), 3), ((2, 3, 4, 3), 3), ((1, 2, 8, 96, 3), 3)]
-# case -> the frustum mode of its model (None: no memory, no EST)
-FORWARD_MODES = {"forward": None, "forward_memory": "plane_mix_exact_z",
-                 "forward_plane_mix": "plane_mix", "forward_exact": "exact"}
+# case -> (the ModelConfig fields of its model, whether it fuses a
+# 2-entry memory with EST)
+FORWARD_CASES = {
+    "forward": ({}, False),
+    "forward_memory": ({}, True),
+    "forward_plane_mix": ({"frustum_mode": "plane_mix"}, True),
+    "forward_exact": ({"frustum_mode": "exact"}, True),
+    "forward_two_pass": ({"two_pass_warp": True}, True),
+    "forward_senet": ({"feature_net": "senet"}, False),
+    "forward_senet_memory": ({"feature_net": "senet"}, True),
+}
 
 
 def primitive_layer(name: str, state: dict) -> torch.nn.Module:
@@ -98,6 +113,11 @@ def primitives(inputs, shards):
                      for k in ("pyramid_raw", "pyramid_skip"))
         res["psm_pyramid"] = shards.gather_width(
             pyramid(net.matchingFeature, raw, skip), -1)
+        sweep = inputs["two_pass_sweep"]
+        feat = shards.shard_width(sweep["feat"], 2).contiguous()
+        res["two_pass_sweep"] = shards.gather_width(plane_sweep_warp(
+            feat, sweep["src_proj"], sweep["ref_proj"], sweep["dvals"],
+            two_pass=True), 3)
     res["round_trips"] = [
         torch.equal(shards.gather_width(shards.shard_width(x, dim), dim), x)
         for x, dim in ((inputs[f"round_trip_{i}"], dim)
@@ -105,11 +125,13 @@ def primitives(inputs, shards):
     return res
 
 
-def _model(inputs, dtype="float32", mode="plane_mix_exact_z"):
+def _model(inputs, dtype="float32", **cfg):
     model = DepthNetHybrid(ModelConfig(
         ndepths=ND, depth_min=DMIN, depth_max=DMAX, resnet=18,
-        frustum_mode=mode, compute_dtype=dtype))
-    model.load_state_dict(inputs["weights"], strict=True)
+        compute_dtype=dtype, **cfg))
+    senet = cfg.get("feature_net") == "senet"
+    model.load_state_dict(inputs["senet_weights" if senet else "weights"],
+                          strict=True)
     return model
 
 
@@ -126,10 +148,8 @@ def _memory_shard(inputs, shards, dtype=torch.float32):
                      m["poses"], m["valid"])
 
 
-def forward(inputs, mesh, shards, mode, dtype="float32"):
-    with_memory = mode is not None
-    fn = make_spatial_window_fn(_model(inputs, dtype, mode or
-                                       "plane_mix_exact_z"), mesh,
+def forward(inputs, mesh, shards, cfg, with_memory, dtype="float32"):
+    fn = make_spatial_window_fn(_model(inputs, dtype, **cfg), mesh,
                                 with_memory=with_memory)
     args = _window(inputs, shards, 0)
     if with_memory:
@@ -176,12 +196,11 @@ def main():
     shards = WidthShards(mesh, W)
     inputs = torch.load(args.inputs, weights_only=True)
     res = {"primitives": primitives(inputs, shards),
-           **{case: forward(inputs, mesh, shards, mode)
-              for case, mode in FORWARD_MODES.items()}}
+           **{case: forward(inputs, mesh, shards, cfg, with_memory)
+              for case, (cfg, with_memory) in FORWARD_CASES.items()}}
     if args.all:
         res["chain"] = chain(inputs, mesh, shards)
-        res["bf16"] = forward(inputs, mesh, shards, "plane_mix_exact_z",
-                              "bfloat16")
+        res["bf16"] = forward(inputs, mesh, shards, {}, True, "bfloat16")
     if mesh.rank == 0:
         torch.save(res, os.path.join(args.out, "results.pt"))
     shutdown()
