@@ -1,0 +1,15 @@
+"""Kernel 2 (`csrc/frustum_warp_exact_z.cu`, op `estdepth::exact_z_resample`)
+in the ESTM stream: 100 x the least time of its calls (bytes at 3.35 TB/s,
+each input read once and the output written once, from the op's argument
+shapes) over the device time inside its op ranges, in %."""
+
+from portbench.harness import rooflines
+
+
+def read(r):
+    if r.protocol != "estm_stream":
+        return None
+    spans = [s for s in r.trace.spans
+             if s.name == "estdepth::exact_z_resample"
+             and not s.nested_in_same]
+    return rooflines.roofline_percent(spans, rooflines.exact_z)
