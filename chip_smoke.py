@@ -70,7 +70,7 @@ with the one-device model: the ESTM stream with its memory carried as
 each rank's K/V columns, a 5-frame Joint window and a plane-mix window,
 the gathered maps against the one-device maps, kernels 1, 2, 3 and 4 at
 each rank's output window against the whole launch's columns, ms per
-window, collectives, bytes, collective share and peak memory per rank;
+window, collectives, bytes and peak memory per rank;
 the steady ESTM window also through the two-pass sweep (kernel 3 at each
 rank's window, timed there) and through the SENet matching encoder.
 Every phase prints one line; any failure raises and exits non-zero. The last line is {"ok":
@@ -948,19 +948,28 @@ def phase_reference_bf16() -> None:
                              f"against the card's bf16-vs-f32 {own}")
 
 
+# each kernel's (launches, launches_bf16) at the last _reset_counts
+_COUNTED_FROM = {name: (0, 0) for name in KERNELS}
+
+
 def _reset_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = k.launches_bf16 = 0
+    """Count the kernels' launches from here on (the port's counters,
+    utils/trace.py, only grow)."""
+    _COUNTED_FROM.update({name: (k.launches, k.launches_bf16)
+                          for name, k in KERNELS.items()})
 
 
 def _read_counts() -> dict:
-    """Launches of each kernel, both instances."""
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Launches of each kernel since the last reset, both instances."""
+    return {name: k.launches - _COUNTED_FROM[name][0]
+            for name, k in KERNELS.items()}
 
 
 def _read_bf16_counts() -> dict:
-    """Launches of each kernel's bfloat16 instance."""
-    return {name: k.launches_bf16 for name, k in KERNELS.items()}
+    """Launches of each kernel's bfloat16 instance since the last
+    reset."""
+    return {name: k.launches_bf16 - _COUNTED_FROM[name][1]
+            for name, k in KERNELS.items()}
 
 
 def phase_reference_joint() -> None:
@@ -2525,16 +2534,12 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
     sharded turn starts on both ranks together). The ESTM stream (4
     windows of 3 frames, the first without EST, a 2-entry memory carried
     as each path's own state), a 5-frame Joint window twice, and one
-    plane-mix window with the memory; then one more ESTM and one more
-    Joint window with every collective timed (a device synchronize on
-    each side of each, which the other turns do not pay), for the share
-    of a window with a collective in flight; last, the steady ESTM window
+    plane-mix window with the memory; last, the steady ESTM window
     with the memory through the two-pass plane sweep (kernel 3) and
     through the SENet matching encoder, each model of seed 0, twice in
     turns with one device. Writes out/rank<r>.json: per sharded call its
-    ms, collectives, bytes, peak memory and kernel launches, and on the
-    timed calls the collective share and each kind's ms per call; on rank
-    0 the one-device ms by path and the gathered maps' max |Δ| from the
+    ms, collectives, bytes, peak memory and kernel launches; on rank 0
+    the one-device ms by path and the gathered maps' max |Δ| from the
     one-device maps."""
     set_fp32_numerics()
     dev = init_distributed(f"localhost:{port}", SPATIAL_RANKS, rank,
@@ -2555,10 +2560,9 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
     res = {"calls": [], "one_device_ms": [], "one_device_ms_by_path": {},
            "errors": {}}
 
-    def sharded(path, frames, memory, timed=False, fn=None):
+    def sharded(path, frames, memory, fn=None):
         fn = fn or fns[memory is not None]
         fn.stats.reset()
-        fn.stats.timed = timed
         torch.distributed.barrier()
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2573,13 +2577,6 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
                 "bytes": dict(fn.stats.bytes),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "launches": _read_counts()}
-        if timed:
-            spans = fn.stats.spans
-            call["collective_share"] = _union_share(
-                [(a, b) for _, a, b in spans], t0, t1)
-            call["ms_per_call"] = {
-                kind: 1e3 * sum(b - a for k, a, b in spans if k == kind) / n
-                for kind, n in fn.stats.calls.items()}
         res["calls"].append(call)
         return ({k: shards.gather_width(v, -1) for k, v in outs.items()},
                 state)
@@ -2636,10 +2633,6 @@ def spatial_rank(rank: int, port: int, out: str) -> None:
         else:
             want, _ = one_device(joint, None)
     compare("joint", got, want)
-    # the timed turns: one steady ESTM window with the memory, one Joint
-    sharded("spatial_estm_timed", list(range(2, 2 + LWINDOW)),
-            memories["sharded"], timed=True)
-    sharded("spatial_joint_timed", joint, None, timed=True)
     # the plane-mix frustum warp (kernel 4) with each path's memory
     last = list(range(SPATIAL_FRAMES - LWINDOW, SPATIAL_FRAMES))
     model.CostRegNet.frustum_mode = "plane_mix"
@@ -2775,8 +2768,7 @@ def phase_spatial_shard(rows: list[dict]) -> None:
     versions on the window's coordinates, both instances, and kernel 3
     timed there against the window's bound (its row's
     "spatial_window"). Launches of both ranks count under the
-    `spatial_*` paths; ms per window come from untimed turns, the
-    collective share from one timed ESTM and one timed Joint window."""
+    `spatial_*` paths."""
     t_phase = time.perf_counter()
     windows_equal, two_pass_windows = _spatial_kernel_windows()
     port = _free_port()
@@ -2848,9 +2840,6 @@ def phase_spatial_shard(rows: list[dict]) -> None:
               for path in SPATIAL_MODELS}
     steady = slice(2, windows)  # EST on, after the first EST window
     last = {pair[0]["path"]: pair[0] for pair in pairs}  # rank 0's
-    # the timed turns (every collective synchronized on each side)
-    timed = {path: [pair for pair in pairs if pair[0]["path"] == path][0]
-             for path in ("spatial_estm_timed", "spatial_joint_timed")}
     log("spatial_shard", ranks=SPATIAL_RANKS, backend="gloo",
         columns=[hi - lo for lo, hi in shard_bounds(WIDTH, SPATIAL_RANKS)],
         estm_ms_per_window_sharded=statistics.median(
@@ -2864,11 +2853,6 @@ def phase_spatial_shard(rows: list[dict]) -> None:
         plane_mix_ms_one_device=one[-1:], models=models,
         collectives_per_window={p: last[p]["collectives"] for p in expected},
         bytes_per_window={p: last[p]["bytes"] for p in expected},
-        collective_share={p: [c["collective_share"] for c in pair]
-                          for p, pair in timed.items()},
-        collective_ms_per_call={p: [c["ms_per_call"] for c in pair]
-                                for p, pair in timed.items()},
-        timed_ms={p: max(c["ms"] for c in pair) for p, pair in timed.items()},
         max_memory_allocated=[max(c["max_memory_allocated"]
                                   for c in r["calls"]) for r in ranks],
         max_abs_err=errors, tol=SPATIAL_TOL, launches=launches,

@@ -18,6 +18,7 @@ from estdepth_tpu_torch.config import resolve_device
 from estdepth_tpu_torch.eval.output import trim_depth
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.models.memory import ESTMemory
+from estdepth_tpu_torch.utils import trace
 
 
 class ESTMRunner:
@@ -107,6 +108,7 @@ class ESTMRunner:
             return depth, probs
         return depth
 
+    @trace.spanned("step")
     def push_frame(self, img, pose, intr):
         """Feed one frame per stream; returns [B, S, H, W] centre-frame depth
         (S = len(output_scales)), or (depth, probs [B, 2, H, W]) with

@@ -24,6 +24,7 @@ from estdepth_tpu_torch.models.layers import (
 )
 from estdepth_tpu_torch.models.memory import ESTMemory
 from estdepth_tpu_torch.ops.warp import frustum_warp
+from estdepth_tpu_torch.utils import trace
 
 
 def softargmin_depth(logits: torch.Tensor, depth_values: torch.Tensor):
@@ -114,6 +115,7 @@ class DepthHybridDecoder(nn.Module):
         x = self.upconv_2_0(x)
         return self.upconv_2_1(torch.cat([upsample_nearest(x), feats[1]], 1))
 
+    @trace.spanned("est_fusion")
     def _est_fusion(self, key, value, target_poses, cam_intr, depth_values,
                     depth_min, depth_interval, memory: ESTMemory | None):
         """Every neighbour (in-window + memory) warped into each target's
@@ -159,6 +161,7 @@ class DepthHybridDecoder(nn.Module):
                     warped[..., :c], warped[..., c:], valid)
         return fused.reshape(b, num, d, h, w, c)
 
+    @trace.spanned("est_fusion")
     def _est_fusion_sequential(self, key, value, target_poses, cam_intr,
                                depth_values, depth_min, depth_interval,
                                memory: ESTMemory | None):

@@ -49,6 +49,7 @@ from estdepth_tpu_torch.ops.geometry import (
 )
 from estdepth_tpu_torch.ops.warp import plane_sweep_warp
 from estdepth_tpu_torch.ops import shard_context
+from estdepth_tpu_torch.utils import trace
 
 
 def _normalize_images(imgs: torch.Tensor,
@@ -119,6 +120,7 @@ class DepthNetHybrid(nn.Module):
         return cands[None].expand(batch, -1)
 
     def _matching(self, imgs: torch.Tensor) -> torch.Tensor:
+        trace.count("matching.frames", imgs.shape[0])
         x = _normalize_images(imgs, self.compute_dtype).permute(0, 3, 1, 2)
         feats = self.matchingFeature(x)
         if isinstance(feats, tuple):  # SEFeatureNet: (1/2, 1/4) maps
@@ -133,6 +135,7 @@ class DepthNetHybrid(nn.Module):
         with self._mode(False):
             return self._matching(imgs)
 
+    @trace.spanned("cost_volume")
     def _cost_volumes(self, feats, cam_poses, cam_intr_s1, depth_values):
         """All targets' cost volumes (model_hybrid.py:62-102,152-164):
         feats [B, V, h, w, 32] channels-last -> [B, T, 32, D, h, w].
@@ -220,6 +223,7 @@ class DepthNetHybrid(nn.Module):
         if v <= 2:
             raise ValueError("need at least 3 views (model_hybrid.py:123)")
         t = v - 2
+        trace.count("model.targets", b * t)
         if use_est is None:
             use_est = self.cfg.est_transformer and (train
                                                     or memory is not None)

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from estdepth_tpu_torch.utils import trace
+
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
@@ -124,16 +126,24 @@ class Kernel:
     `argtypes` are set before an entry point's first call: without them
     ctypes passes a pointer as a 32-bit int and cuts it. The entry point
     returns cudaGetLastError() after its launch; a non-zero code raises.
-    `launches` grows by one for every launch that returned 0, of either
-    instance, and `launches_bf16` for those of the bfloat16 instance."""
+    Every launch that returned 0 adds one to the counter
+    `launches.<stem>` (utils/trace.py), and one of the bfloat16 instance
+    to `launches_bf16.<stem>` too; `launches` and `launches_bf16` read
+    them."""
 
     def __init__(self, source: str, stem: str, argtypes: list):
         self.source = source
         self.stem = stem
         self.argtypes = argtypes
-        self.launches = 0
-        self.launches_bf16 = 0
         self._fns = {}
+
+    @property
+    def launches(self) -> int:
+        return trace.counts().get(f"launches.{self.stem}", 0)
+
+    @property
+    def launches_bf16(self) -> int:
+        return trace.counts().get(f"launches_bf16.{self.stem}", 0)
 
     def symbol(self, dtype: torch.dtype) -> str:
         return f"{self.stem}_{INSTANCES[dtype]}"
@@ -149,9 +159,9 @@ class Kernel:
         status = fn(*args)
         if status != 0:
             raise RuntimeError(f"{self.symbol(dtype)}: CUDA error {status}")
-        self.launches += 1
+        trace.count(f"launches.{self.stem}")
         if dtype == torch.bfloat16:
-            self.launches_bf16 += 1
+            trace.count(f"launches_bf16.{self.stem}")
 
 
 def output_grid(name: str, x: torch.Tensor, height: int, width: int,
@@ -268,8 +278,7 @@ class _PlainGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         volume, *coords = ctx.saved_tensors
-        with torch.autograd.profiler.record_function(
-                f"estdepth::{ctx.name}_backward"), torch.enable_grad():
+        with trace.span(f"{ctx.name}_backward"), torch.enable_grad():
             leaf = volume.detach().requires_grad_()
             out = ctx.plain(leaf, *(c.detach() for c in coords))
             (grad,) = torch.autograd.grad(out, leaf, grad_out.contiguous())

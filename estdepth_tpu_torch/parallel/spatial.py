@@ -46,9 +46,7 @@ card). Nothing is differentiable: the JAX function is eval only.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 
 import torch
 import torch.distributed as dist
@@ -65,21 +63,15 @@ __all__ = ["CollectiveStats", "GRID", "WidthShards", "current",
 @dataclasses.dataclass
 class CollectiveStats:
     """What a rank's collectives moved since the last `reset`: calls by kind
-    ("halo", "gather", "all_reduce"), the bytes of each kind's result
-    buffers (an all_gather's: every rank's contribution), and with
-    `timed` the (kind, start, end) host times of every call, each after a
-    device synchronize so that its span is the exchange alone (which
-    costs the forward those synchronizes)."""
+    ("halo", "gather", "all_reduce") and the bytes of each kind's result
+    buffers (an all_gather's: every rank's contribution)."""
 
     calls: dict = dataclasses.field(default_factory=dict)
     bytes: dict = dataclasses.field(default_factory=dict)
-    spans: list = dataclasses.field(default_factory=list)
-    timed: bool = False
 
     def reset(self) -> None:
         self.calls.clear()
         self.bytes.clear()
-        self.spans.clear()
 
     def add(self, kind: str, nbytes: int) -> None:
         self.calls[kind] = self.calls.get(kind, 0) + 1
@@ -158,35 +150,19 @@ class WidthShards:
 
     # -- collectives ------------------------------------------------------
 
-    @contextlib.contextmanager
-    def _collective(self, kind: str, nbytes: int):
-        self.stats.add(kind, nbytes)
-        if not self.stats.timed:
-            yield
-            return
-        sync = (torch.cuda.synchronize if self.mesh.device.type == "cuda"
-                else (lambda: None))
-        sync()
-        t0 = time.perf_counter()
-        yield
-        sync()
-        self.stats.spans.append((kind, t0, time.perf_counter()))
-
     def _all_gather(self, kind: str, x: torch.Tensor) -> list[torch.Tensor]:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        with self._collective(kind, x.numel() * x.element_size()
-                              * self.size):
-            dist.all_gather(parts, x, group=self.mesh.group)
+        self.stats.add(kind, x.numel() * x.element_size() * self.size)
+        dist.all_gather(parts, x, group=self.mesh.group)
         return parts
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of `x` over the ranks (a new tensor)."""
         x = x.clone(memory_format=torch.contiguous_format)
         if self.size > 1:
-            with self._collective("all_reduce",
-                                  x.numel() * x.element_size()):
-                dist.all_reduce(x, group=self.mesh.group)
+            self.stats.add("all_reduce", x.numel() * x.element_size())
+            dist.all_reduce(x, group=self.mesh.group)
         return x
 
     def gather_width(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -258,7 +234,7 @@ def make_spatial_window_fn(model, mesh: Mesh, axis_name: str = "data",
     `train=False`), as the JAX function's. Every rank calls fn together.
     The layout is found from the ranks' widths at the first call of each
     width (one all_gather); `fn.stats` counts the collectives of every
-    call (`fn.stats.timed = True` also times them)."""
+    call."""
     if axis_name not in mesh.axis_names:
         raise ValueError(f"axis {axis_name!r} is not one of the mesh's "
                          f"{mesh.axis_names}")

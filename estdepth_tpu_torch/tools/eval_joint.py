@@ -58,6 +58,7 @@ from estdepth_tpu_torch.tools.eval_estm import (
     SCORED_SCALES, add_result, build_model, maps_exist, new_result,
     print_summary, save_maps, scene_list, score, timed_frames,
 )
+from estdepth_tpu_torch.utils import trace
 from estdepth_tpu_torch.utils.viz import colorize_probmap, save_image
 
 
@@ -79,6 +80,7 @@ class JointRunner:
     def reset(self) -> None:
         self.memory = None
 
+    @trace.spanned("step")
     @torch.inference_mode()
     def run_window(self, imgs, poses, intr):
         """imgs [B, V, H, W, 3] (0..255), poses [B, V, 4, 4], intr

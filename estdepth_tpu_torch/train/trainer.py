@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from estdepth_tpu_torch.parallel.mesh import Mesh, replicate
 from estdepth_tpu_torch.train.loss import multi_scale_loss
+from estdepth_tpu_torch.utils import trace
 
 REMAT_POLICIES = ("nothing", "save_features")
 
@@ -174,6 +175,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     b.copy_(kept)
         return scalars
 
+    @trace.spanned("step")
     def step(batch, clip_norm: float):
         optimizer.zero_grad(set_to_none=True)
         n = batch["imgs"].shape[0]
