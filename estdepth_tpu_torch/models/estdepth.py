@@ -52,6 +52,21 @@ from estdepth_tpu_torch.ops import shard_context
 from estdepth_tpu_torch.utils import trace
 
 
+@contextlib.contextmanager
+def measured_conv_plans():
+    """Inside the block cuDNN times its candidate plans for a convolution
+    it has not run before and keeps the fastest
+    (`torch.backends.cudnn.benchmark`); the caller's setting after. No
+    other cuDNN or matmul flag changes (`torch.backends.cudnn.flags()`
+    would also set `enabled` and `allow_tf32` to its own defaults)."""
+    was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = was
+
+
 def _normalize_images(imgs: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
     """0..255 frames (uint8 or float) -> [-1, 1] (model_hybrid.py:119) in
@@ -122,7 +137,16 @@ class DepthNetHybrid(nn.Module):
     def _matching(self, imgs: torch.Tensor) -> torch.Tensor:
         trace.count("matching.frames", imgs.shape[0])
         x = _normalize_images(imgs, self.compute_dtype).permute(0, 3, 1, 2)
-        feats = self.matchingFeature(x)
+        # cuDNN keeps the plan that a convolution's first call chose, so
+        # only a call with a new key searches
+        trace.count_new("matching.plan_searches", (
+            type(self.matchingFeature).__name__, tuple(x.shape), x.dtype,
+            x.device, self.training))
+        # on an H100 in float32 cuDNN's heuristic gives the 5-frame batch's
+        # 320-channel `lastconv` FFT tiles, 150x the time of the implicit
+        # GEMM that a measured choice takes; the search runs once a shape
+        with measured_conv_plans():
+            feats = self.matchingFeature(x)
         if isinstance(feats, tuple):  # SEFeatureNet: (1/2, 1/4) maps
             feats = feats[-1]
         return feats.permute(0, 2, 3, 1)

@@ -17,8 +17,13 @@ custom op's (`estdepth::plane_sweep_sample` and the others), which the
 profiler records by itself.
 
 `count(name, n)` adds to one process-wide counter of plain ints, on the
-host (nothing here reads the device); `counts()` is a copy of it.
+host (nothing here reads the device); `count_new(name, key)` adds 1 the
+first time the process gives `name` that key; `counts()` is a copy of it.
 Counters: `matching.frames` (frames through the matching encoder),
+`matching.plan_searches` (matching encoder calls with an encoder, input
+shape, dtype, device and train mode new to the process: the calls in
+which cuDNN times its plans, models/estdepth.measured_conv_plans; on the
+CPU it counts the keys all the same),
 `model.targets` (target depth maps a forward computes), `launches.<stem>`
 and `launches_bf16.<stem>` (a CUDA kernel's launches, both instances and
 the bfloat16 one; ops/cuda/build.Kernel). They count the eager model's
@@ -50,6 +55,7 @@ class _Off:
 
 OFF = _Off()
 _counts: collections.Counter = collections.Counter()
+_seen: collections.defaultdict = collections.defaultdict(set)
 _lock = threading.Lock()
 
 
@@ -77,6 +83,14 @@ def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name`."""
     with _lock:
         _counts[name] += n
+
+
+def count_new(name: str, key) -> None:
+    """Add 1 to the counter `name` the first time it is given `key`."""
+    with _lock:
+        if key not in _seen[name]:
+            _seen[name].add(key)
+            _counts[name] += 1
 
 
 def counts() -> dict:

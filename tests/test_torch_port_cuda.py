@@ -20,6 +20,8 @@ The ESTM tool's dataset path (a scene written by data/png.py, a reference
 checkpoint) is held against its CPU run at the chain tolerance 8e-3. A
 serving artifact exported on the CPU and loaded onto the card launches
 the kernels from its op nodes and equals a card ESTMRunner within 1e-5.
+The PSM matching encoder, under its measured cuDNN plans, stays float32
+(no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 Without JAX on the card's machine, run with `--noconftest`.
 """
 
@@ -800,3 +802,49 @@ def test_two_pass_kernel_at_an_output_window_is_the_whole_columns(dev,
         assert torch.equal(got, whole[:, :, lo:hi]), (lo, hi)
         assert torch.equal(got, two_pass.two_pass_resample_plain(
             src, ab_w, xs, ys, ppm)), (lo, hi)
+
+
+def test_matching_encoder_under_measured_plans_is_float32(dev):
+    """The PSM encoder of `DepthNetHybrid._matching` at the Joint window's
+    [5, 3, 256, 320] float32 after `set_fp32_numerics()`, through its
+    measured-plan scope: cuDNN's benchmark flag on and TF32 off inside
+    the call, every flag as it was after, no TF32 kernel among those the
+    call (the plan search included) launches, and the features within
+    1e-4 of their scale of the same weights and frames on the CPU (a plan
+    once chosen for a shape is kept by the process, so the CPU, not an
+    unscoped card run, is the reference)."""
+    from estdepth_tpu_torch.config import ModelConfig, set_fp32_numerics
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+
+    set_fp32_numerics()
+    before = (torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled,
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark_limit)
+    model = DepthNetHybrid(ModelConfig(ndepths=8, resnet=18), seed=0)
+    imgs = torch.rand(5, 256, 320, 3,
+                      generator=torch.Generator().manual_seed(0)) * 255
+    with torch.no_grad():
+        want = model.compute_matching(imgs)
+    model.to(dev)
+    inside = []
+    hook = model.matchingFeature.register_forward_pre_hook(
+        lambda mod, args: inside.append((torch.backends.cudnn.benchmark,
+                                         torch.backends.cudnn.allow_tf32)))
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof, \
+                torch.no_grad():
+            got = model.compute_matching(imgs.to(dev))
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    assert inside == [(True, False)]
+    assert (torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark_limit) == before
+    assert not torch.backends.cudnn.allow_tf32
+    kernels = {e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert kernels and not [k for k in kernels if "tf32" in k.lower()]
+    gap = float((got.cpu() - want).abs().max())
+    assert gap <= 1e-4 * float(want.abs().max()), gap

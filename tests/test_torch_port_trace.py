@@ -5,12 +5,16 @@ With no profiler a span is the shared no-op and no profiler range opens.
 Under torch.profiler one runner request or training step opens one
 `estdepth::step`, with the cost volume and EST fusion inside it where they
 run. The counters count the matching encoder's frames and the forward's
-targets, the kernels' launch counts read the same registry, and the
-serving export traces no profiler op into its programs.
+targets, and the encoder calls at a new shape; the kernels' launch counts
+read the same registry, and the serving export traces no profiler op into
+its programs. The matching encoder runs with cuDNN's measured plan choice
+on and every other flag as its caller set it, also when it raises.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import sys
 import threading
 
@@ -23,6 +27,7 @@ from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream, synthetic_window,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
+from estdepth_tpu_torch.models import estdepth
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops.cuda import plane_warp
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -153,16 +158,91 @@ def _grown(fn) -> dict:
 
 
 def test_counters_of_a_joint_window_and_a_steady_stream_frame(model,
-                                                              frames):
+                                                              frames,
+                                                              monkeypatch):
+    monkeypatch.setattr(trace, "_seen", collections.defaultdict(set))
     runner = JointRunner(model, device="cpu")
     w = _window()
     assert _grown(lambda: runner.run_window(
         w["imgs"], w["cam_poses"], w["cam_intr"])) == {
-        "matching.frames": 5, "model.targets": 3}
+        "matching.frames": 5, "model.targets": 3,
+        "matching.plan_searches": 1}
     stream, frame = _stream_runner(model, frames)
     assert _grown(lambda: stream.push_frame(
         frame["img"], frame["cam_pose"], frame["cam_intr"])) == {
         "matching.frames": 1, "model.targets": 1}
+
+
+def test_plan_searches_count_each_new_matching_shape_once(model, frames,
+                                                         monkeypatch):
+    """A Joint window's 5 frames are one new key and a second window of
+    that shape none; the stream's first window (3 frames) and its first
+    frame after it (1 frame) one each, the next frame none."""
+    monkeypatch.setattr(trace, "_seen", collections.defaultdict(set))
+    runner = JointRunner(model, device="cpu")
+    w = _window()
+
+    def searches(fn):
+        return _grown(fn).get("matching.plan_searches", 0)
+
+    window = lambda: runner.run_window(w["imgs"], w["cam_poses"],  # noqa
+                                       w["cam_intr"])
+    assert [searches(window), searches(window)] == [1, 0]
+    stream = ESTMRunner(model, H, W, device="cpu")
+    pushes = [searches(lambda f=f: stream.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) for f in frames]
+    assert pushes == [0, 0, 1, 1, 0]
+
+
+# a caller's cuDNN flags, none of them the default
+CALLER_FLAGS = {"benchmark": False, "allow_tf32": False,
+                "deterministic": True, "enabled": False,
+                "benchmark_limit": 3}
+
+
+def _cudnn_flags() -> dict:
+    return {k: getattr(torch.backends.cudnn, k) for k in CALLER_FLAGS}
+
+
+@pytest.fixture
+def caller_flags(monkeypatch):
+    for k, v in CALLER_FLAGS.items():
+        monkeypatch.setattr(torch.backends.cudnn, k, v)
+    return dict(CALLER_FLAGS)
+
+
+def test_matching_encoder_runs_with_measured_plans_and_the_callers_flags(
+        model, frames, caller_flags):
+    seen = []
+    hook = model.matchingFeature.register_forward_pre_hook(
+        lambda mod, args: seen.append(_cudnn_flags()))
+    try:
+        model.compute_matching(torch.from_numpy(frames[0]["img"])[None])
+    finally:
+        hook.remove()
+    assert seen == [dict(caller_flags, benchmark=True)]
+    assert _cudnn_flags() == caller_flags
+
+
+def test_cudnn_flags_come_back_when_the_matching_encoder_raises(
+        model, frames, caller_flags, monkeypatch):
+    def fail(x):
+        assert torch.backends.cudnn.benchmark
+        raise RuntimeError("encoder failed")
+
+    monkeypatch.setattr(model.matchingFeature, "forward", fail)
+    with pytest.raises(RuntimeError, match="encoder failed"):
+        model.compute_matching(torch.from_numpy(frames[0]["img"])[None])
+    assert _cudnn_flags() == caller_flags
+
+
+def test_measured_plans_leave_the_cpu_features_equal(model, frames,
+                                                     monkeypatch):
+    imgs = torch.stack([torch.from_numpy(f["img"]) for f in frames])
+    scoped = model.compute_matching(imgs)
+    monkeypatch.setattr(estdepth, "measured_conv_plans",
+                        contextlib.nullcontext)
+    assert torch.equal(scoped, model.compute_matching(imgs))
 
 
 def test_kernel_launch_counts_read_the_registry():
@@ -196,6 +276,26 @@ def test_counting_from_many_threads_loses_no_add():
     finally:
         sys.setswitchinterval(interval)
     assert trace.counts()[name] == start + threads * adds
+
+
+def test_count_new_counts_each_key_once_across_threads(monkeypatch):
+    monkeypatch.setattr(trace, "_seen", collections.defaultdict(set))
+    name, threads, keys = "test.new_keys", 16, 500
+    start = trace.counts().get(name, 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(
+            target=lambda: [trace.count_new(name, k) for k in range(keys)])
+            for _ in range(threads)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert trace.counts()[name] == start + keys
 
 
 def test_the_stream_artifact_holds_no_profiler_op(model):
