@@ -1,21 +1,32 @@
-"""The port's model and the reference, both from a configuration's file,
-with the same weights from the seed."""
+"""The port's model and the plain reference of a configuration, with the
+same weights from the seed, through the configuration's model family.
+
+A configuration's file names its family under `family` (DEFAULT_FAMILY
+where it names none): the file `portbench/families/<family>.py` of the
+checkout the configuration was loaded from (harness/cell.py), found by
+name as protocols and readers are. A family defines
+
+- `structure(config)`: the reference's module tree; it is built here on
+  the meta device, and the seed's state_dict is made from it
+  (harness/weights.py);
+- `reference(config, state, device)`: the plain float32 reference, kept
+  under `portbench/reference/`;
+- `port(config, state, device)`: the port's model on its normal path;
+
+and raises ValueError on any setting its reference does not compute. A new
+architecture is a new family and a new reference: no file here changes.
+"""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
-from portbench.harness.weights import make_state_dict, on_device
-from portbench.reference.model import DepthNetHybrid as Reference
+from portbench.harness.cell import family_file, load_module
+from portbench.harness.weights import make_state_dict
 
-# the port settings the reference computes; another value needs another
-# reference
-REFERENCE_SETTINGS = {"est_transformer": True,
-                      "frustum_mode": "plane_mix_exact_z",
-                      "sequential_fusion": True, "two_pass_warp": False,
-                      "use_fused_attention": False,
-                      "sequential_cost_bn": False,
-                      "compute_dtype": "float32"}
+PACKAGE = Path(__file__).resolve().parents[1]
 
 
 def set_numerics(tf32: bool) -> None:
@@ -23,29 +34,23 @@ def set_numerics(tf32: bool) -> None:
     torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _reference_fn(config: dict):
-    m = config["model"]
-    for key, want in REFERENCE_SETTINGS.items():
-        if m.get(key, want) != want:
-            raise ValueError(f"the reference computes {key}={want!r}, the "
-                             f"configuration asks for {m[key]!r}")
-    return lambda: Reference(m["feature_net"], m["ndepths"],
-                             m["depth_min"], m["depth_max"], m["resnet"])
+def family(config: dict):
+    """The family module of `config`: the file that `cell.load` recorded,
+    or that of this package for a configuration made in code."""
+    return load_module(Path(config.get("family_file")
+                            or family_file(PACKAGE, config)))
 
 
 def weights(config: dict, seed: int, device) -> dict:
+    fam = family(config)
     with torch.device("meta"):
-        structure = _reference_fn(config)()
+        structure = fam.structure(config)
     return make_state_dict(structure, seed, device)
 
 
-def reference(config: dict, state: dict, device) -> Reference:
-    return on_device(_reference_fn(config), state, device)
+def reference(config: dict, state: dict, device):
+    return family(config).reference(config, state, device)
 
 
 def port(config: dict, state: dict, device):
-    from estdepth_tpu_torch.config import ModelConfig
-    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
-
-    cfg = ModelConfig(**config["model"])
-    return on_device(lambda: DepthNetHybrid(cfg), state, device)
+    return family(config).port(config, state, device)

@@ -7,7 +7,13 @@ marked `he_init` and lecun-normal (sqrt(1 / fan_in)) otherwise, divided by
 the standard deviation of a unit normal truncated to [-2, 2]; biases 0;
 BatchNorm scale 1 (0 where marked `zero_init`), bias 0, running mean 0,
 variance 1; GroupNorm scale 1, bias 0. The marks are read from the
-benchmark's reference model, whose module tree and names are the port's.
+benchmark's reference model (a family's `structure`), whose module tree and
+names are the port's. Every convolution (`nn.modules.conv._ConvNd`: the
+transposed ones too) and `nn.Linear` takes a kernel. The fan-in is
+PyTorch's own for the weight (`torch.nn.init`'s), `weight[0].numel()` in
+both layouts: in_channels / groups x the kernel's size for a convolution's
+[out, in / groups, *k], out_channels / groups x the kernel's size for a
+transposed convolution's [in, out / groups, *k].
 One draw of unit truncated normals for every kernel, scaled per leaf by
 one multiply; the same seed gives the same weights on any run.
 """
@@ -36,7 +42,7 @@ def make_state_dict(reference: nn.Module, seed: int,
     kernels, consts = [], {}
     for prefix, m in reference.named_modules():
         name = f"{prefix}." if prefix else ""
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.modules.conv._ConvNd, nn.Linear)):
             kernels.append((name + "weight", tuple(m.weight.shape),
                             _kernel_std(m)))
             if m.bias is not None:

@@ -126,3 +126,24 @@ def test_weights_follow_the_init_scheme():
     assert float(a["pre2.1.weight"].abs().max()) == 0.0  # zero_bn_scale
     assert float(a["pre1.1.weight"].min()) == 1.0
     assert set(a) == set(ref.state_dict())
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.nn.ConvTranspose3d(16, 4, 4, stride=2),
+    lambda: torch.nn.ConvTranspose2d(16, 8, 3, groups=2),
+    lambda: torch.nn.Conv3d(16, 8, 3)])
+def test_weights_take_torch_fan_in_for_every_convolution(make):
+    from torch.nn.init import _calculate_fan_in_and_fan_out
+
+    from portbench.harness.weights import TRUNC_STD, make_state_dict
+
+    with torch.device("meta"):
+        conv = make()
+    state = make_state_dict(conv, 2**31 + 9, "cpu")
+    w = state["weight"]
+    fan_in = _calculate_fan_in_and_fan_out(w)[0]
+    assert fan_in == w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD  # lecun-normal, unmarked
+    assert w.abs().max() <= 2 * std + 1e-6
+    assert w.std().item() == pytest.approx(std * TRUNC_STD, rel=0.15)
+    assert float(state["bias"].abs().max()) == 0.0

@@ -165,9 +165,35 @@ def test_no_file_imports_the_jax_stack_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_port():
-    for path in (ROOT / "portbench" / "reference").glob("*.py"):
+    for path in (ROOT / "portbench" / "reference").rglob("*.py"):
         tops = {n.split(".")[0] for n in _imports(path)}
         assert tops <= {"torch", "portbench", "__future__"}, (path, tops)
+
+
+def test_every_configuration_names_a_family_file():
+    from portbench.harness.cell import family_file
+
+    for c in BENCH["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert family_file(ROOT / "portbench", cfg).is_file(), c["name"]
+
+
+def _module_level_imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_families_import_the_port_only_inside_port():
+    """A family's structure and reference load nothing of the port: it is
+    imported inside `port()` alone."""
+    for path in (ROOT / "portbench" / "families").glob("*.py"):
+        tops = {n.split(".")[0] for n in _module_level_imports(path)}
+        assert "estdepth_tpu_torch" not in tops, path
 
 
 def test_forbidden_names_compare_whole():
