@@ -55,6 +55,51 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """CasMVSNet hyper-parameters (Gu et al., CVPR 2020, arXiv:1912.06378;
+    cascade-stereo CasMVSNet/models/cas_mvsnet.py), defaults at the
+    published DTU evaluation setting: `--ndepths 48,32,8
+    --depth_inter_r 4,2,1`, 192 base planes of 2.5 mm x 1.06
+    (`--interval_scale`) from 425 mm, in metres. The channel widths are
+    the published FeatureNet(base_channels=8) and CostRegNet(8) and are
+    not settings. Float32 only: `compute_dtype` takes no other value."""
+
+    # planes of each cascade stage, at 1/4, 1/2 and full resolution
+    stage_planes: tuple[int, ...] = (48, 32, 8)
+    # each stage's hypothesis spacing in base intervals, stages 2 and 3
+    # centred on the previous stage's depth (stage 1 spans the range)
+    interval_ratios: tuple[int, ...] = (4, 2, 1)
+    ndepths: int = 192  # base planes D0 of the scan's depth range
+    depth_min: float = 0.425
+    depth_interval: float = 0.00265  # the base interval
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: "
+                             f"CascadeConfig computes float32 only")
+        if len(self.stage_planes) != 3 or len(self.interval_ratios) != 3:
+            raise ValueError(f"stage_planes {self.stage_planes} and "
+                             f"interval_ratios {self.interval_ratios}: "
+                             f"three stages each")
+        if any(d % 8 for d in self.stage_planes):
+            raise ValueError(f"stage_planes {self.stage_planes}: the 3D "
+                             f"U-Net halves D three times (multiples of 8)")
+
+    @property
+    def depth_max(self) -> float:
+        """The last of the D0 base planes."""
+        return self.depth_min + (self.ndepths - 1) * self.depth_interval
+
+    @property
+    def forward_interval(self) -> float:
+        """The interval the published forward spaces stages 2 and 3 by:
+        (depth_max - depth_min) / D0 (cas_mvsnet.py), 191/192 of the base
+        interval at D0 = 192."""
+        return (self.depth_max - self.depth_min) / self.ndepths
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Input pipeline settings (reference data/scannet.py,
     general_eval*.py)."""

@@ -27,12 +27,23 @@ from estdepth_tpu_torch.ops.warp import frustum_warp
 from estdepth_tpu_torch.utils import trace
 
 
+def expected_depth(probs: torch.Tensor,
+                   depth_values: torch.Tensor) -> torch.Tensor:
+    """sum_i p_i d_i of plane probabilities [N, D, H, W]: depth_values
+    [N, D], one depth a plane, or a [N, D, H, W] tensor (or one that
+    broadcasts to it) of per-pixel hypotheses, summed over D as
+    CasMVSNet's depth_regression does (cas_mvsnet module.py)."""
+    if depth_values.dim() == 2:
+        return torch.einsum("ndhw,nd->nhw", probs, depth_values.float())
+    return (probs * depth_values.float()).sum(1)
+
+
 def softargmin_depth(logits: torch.Tensor, depth_values: torch.Tensor):
     """Depth expectation and max probability from plane logits
-    [N, D, H, W] and depth_values [N, D] (hybrid_depth_decoder.py:33-38)."""
+    [N, D, H, W] and depth_values [N, D] or per-pixel [N, D, H, W]
+    (hybrid_depth_decoder.py:33-38; expected_depth)."""
     probs = torch.softmax(logits.float(), 1)
-    depth = torch.einsum("ndhw,nd->nhw", probs, depth_values.float())
-    return depth, probs.amax(1)
+    return expected_depth(probs, depth_values), probs.amax(1)
 
 
 class ConvBlock(nn.Module):

@@ -138,9 +138,26 @@ def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
     conv_cls, bn_cls = ((Conv2d, nn.BatchNorm2d) if dims == 2
                         else (Conv3d, nn.BatchNorm3d))
     conv = conv_cls(cin, cout, kernel, stride, pad, dilation, bias=False)
-    conv.he_init = True
     bn = bn_cls(cout, eps=1e-5)
     bn.zero_init = zero_bn_scale
+    return _with_bn(conv, bn, act)
+
+
+def deconv_bn(cin: int, cout: int, kernel: int = 3, stride: int = 2,
+              pad: int = 1, output_pad: int = 1, act: str | None = "relu"
+              ) -> nn.Sequential:
+    """ConvTranspose3d(bias=False) + BatchNorm3d (+ ReLU): CasMVSNet's
+    Deconv3d (cascade-stereo models/module.py), which with the defaults
+    doubles each of D, H and W. Named as conv_bn's: `<name>.0.weight`,
+    `<name>.1.*`."""
+    conv = nn.ConvTranspose3d(cin, cout, kernel, stride, pad, output_pad,
+                              bias=False)
+    return _with_bn(conv, nn.BatchNorm3d(cout, eps=1e-5), act)
+
+
+def _with_bn(conv: nn.Module, bn: nn.Module, act: str | None
+             ) -> nn.Sequential:
+    conv.he_init = True
     layers = [conv, bn]
     if act == "relu":
         layers.append(nn.ReLU(inplace=True))
@@ -229,7 +246,8 @@ def he_conv(conv: nn.Module) -> nn.Module:
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's random init: conv kernels truncated-normal
+    """The JAX package's random init: conv kernels (transposed ones too,
+    at PyTorch's fan-in `weight[0].numel()`) truncated-normal
     he-normal (ConvBN) or lecun-normal (plain convs and dense layers),
     biases 0; BatchNorm
     scale 1 (0 under zero_bn_scale), bias 0, running mean 0 and var 1;
@@ -238,7 +256,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     random-weight forward finite."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            if isinstance(m, (nn.modules.conv._ConvNd, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 scale = 2.0 if getattr(m, "he_init", False) else 1.0
                 std = math.sqrt(scale / fan_in) / _TRUNC_STD

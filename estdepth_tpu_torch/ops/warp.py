@@ -55,13 +55,20 @@ def _plane_sweep_geometry(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     src_proj @ inv(ref_proj) (homo_utils.py:469-471) and the source pixel
     coordinates x, y [B, D*H*W] of every (plane, ref pixel), the projective
     division with +1e-8 (:483); with `columns` (start, stop) of the ref
-    pixels of those columns only, [B, D*H*(stop-start)]."""
-    b, d = depth_values.shape
+    pixels of those columns only, [B, D*H*(stop-start)]. depth_values is
+    [B, D], one depth a plane, or [B, D, H, W], D depth hypotheses of each
+    ref pixel (CasMVSNet's cascade stages); a pixel's coordinates are the
+    same arithmetic either way."""
+    b, d = depth_values.shape[:2]
     rot, trans = geometry.relative_projection(src_proj, ref_proj)
     grid = geometry.pixel_grid(height, width, device=rot.device,
                                columns=columns)
     rot_xyz = torch.matmul(rot, grid)  # [B, 3, HW]
-    pts = rot_xyz[:, :, None, :] * depth_values[:, None, :, None]
+    if depth_values.dim() == 2:
+        depth = depth_values[:, None, :, None]
+    else:
+        depth = depth_values.reshape(b, 1, d, -1)
+    pts = rot_xyz[:, :, None, :] * depth
     pts = pts + trans[:, :, None, None]
     zb = pts[:, 2] + 1e-8
     x = (pts[:, 0] / zb).reshape(b, -1)
@@ -94,13 +101,27 @@ def plane_sweep_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
                      ref_proj: torch.Tensor, depth_values: torch.Tensor,
                      two_pass: bool = False) -> torch.Tensor:
     """Warp src features [B, H, W, C] over the D fronto-parallel depth
-    planes [B, D] of the ref camera -> [B, D, H, W, C]; out-of-view samples
+    planes [B, D] of the ref camera, or over per-pixel depth hypotheses
+    [B, D, H, W] of its pixels, -> [B, D, H, W, C]; out-of-view samples
     are 0. src_proj / ref_proj: [B, 4, 4] (geometry.camera_projection).
     `two_pass` samples through the fused two-pass resample (kernel 3)
-    instead of the exact bilinear sample (kernel 1)."""
+    instead of the exact bilinear sample (kernel 1); it takes planes
+    only, since its line coefficients are one homography a plane, and so
+    does a width-sharded call."""
     b, h, w, c = src_feat.shape  # w: this rank's output columns
     d = depth_values.shape[1]
     shards = shard_context.current()
+    if depth_values.dim() != 2:
+        if depth_values.shape != (b, d, h, w):
+            raise ValueError(f"per-pixel depth_values "
+                             f"{tuple(depth_values.shape)} for features "
+                             f"{tuple(src_feat.shape)}: [B, D, {h}, {w}]")
+        if two_pass:
+            raise ValueError("two_pass takes depth planes [B, D]: its line "
+                             "coefficients are one homography a plane")
+        if shards is not None:
+            raise ValueError("a width-sharded sweep takes depth planes "
+                             "[B, D]")
     columns = None
     if shards is not None:
         columns = shards.columns(w)

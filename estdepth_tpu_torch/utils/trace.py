@@ -8,11 +8,16 @@ costs one flag test when tracing is off. `spanned(name)` wraps every call
 of a function or method in `span(name)`; it is the decorator form, since a
 decorator is built at import, when no profiler records.
 
-Spans: `step` (ESTMRunner.push_frame, JointRunner.run_window, a training
-step), `cost_volume` (DepthNetHybrid._cost_volumes), `est_fusion`
-(DepthHybridDecoder._est_fusion and _est_fusion_sequential) and
+Spans: `step` (ESTMRunner.push_frame, JointRunner.run_window,
+MVSRunner.run_view, a training step), `cost_volume`
+(DepthNetHybrid._cost_volumes), `est_fusion`
+(DepthHybridDecoder._est_fusion and _est_fusion_sequential),
 `<kernel>_backward` (ops/cuda/build.py: the plain gradient of a kernel's
-sampled volume, run on autograd's thread). A span's name never equals a
+sampled volume, run on autograd's thread) and CasMVSNet's
+(models/casmvsnet.py): `mvs_features` (the feature net), and one a stage
+of `mvs_cost_volume` (hypotheses, sweeps and variance),
+`mvs_regularization` (the 3D U-Net) and `mvs_regression` (softmax,
+depth; the confidence in the last). A span's name never equals a
 custom op's (`estdepth::plane_sweep_sample` and the others), which the
 profiler records by itself.
 
@@ -24,7 +29,10 @@ Counters: `matching.frames` (frames through the matching encoder),
 shape, dtype, device and train mode new to the process: the calls in
 which cuDNN times its plans, models/estdepth.measured_conv_plans; on the
 CPU it counts the keys all the same),
-`model.targets` (target depth maps a forward computes), `launches.<stem>`
+`model.targets` (target depth maps a forward computes), `mvs.targets`,
+`mvs.feature_views` and `mvs.hypotheses` (CasMVSNet's reference depth
+maps, views through its feature net and D h w summed over its stages),
+`launches.<stem>`
 and `launches_bf16.<stem>` (a CUDA kernel's launches, both instances and
 the bfloat16 one; ops/cuda/build.Kernel). They count the eager model's
 calls: an exported program (serving.py) runs without them.

@@ -20,6 +20,7 @@ The ESTM tool's dataset path (a scene written by data/png.py, a reference
 checkpoint) is held against its CPU run at the chain tolerance 8e-3. A
 serving artifact exported on the CPU and loaded onto the card launches
 the kernels from its op nodes and equals a card ESTMRunner within 1e-5.
+Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 Without JAX on the card's machine, run with `--noconftest`.
@@ -85,6 +86,33 @@ def test_plane_sweep_kernel_matches_plain(dev, c, w):
     got = plane_warp.plane_sweep_sample(src, x, y)
     assert plane_warp.KERNEL.launches == before + 1
     assert torch.equal(got, plane_warp.plane_sweep_sample_plain(src, x, y))
+    assert (got == 0).any() and (got != 0).any()
+
+
+def test_plane_sweep_kernel_at_per_pixel_hypotheses(dev):
+    """Kernel 1 at the per-pixel coordinates of CasMVSNet's stage 2 at the
+    DTU setting (576x800 maps of 16 channels, 32 hypotheses a pixel
+    around a depth map, models/casmvsnet.py): `torch.equal` to the plain
+    version, through plane_sweep_warp and through the op itself."""
+    b, h, w, c, d = 1, 576, 800, 16, 32
+    k = torch.tensor([[[1446.165, 0, (w - 1) / 2], [0, 1446.165, (h - 1) / 2],
+                       [0, 0, 1]]], device=dev)
+    gen = torch.Generator().manual_seed(0)
+    src = torch.randn(b, h, w, c, generator=gen).to(dev)
+    centre = 0.6 + 0.1 * torch.rand(b, h, w, generator=gen)
+    hyp = (centre[:, None] + torch.linspace(-0.085, 0.085, d)[
+        None, :, None, None]).to(dev)
+    proj = geometry.camera_projection(
+        k, _pose(0.06, -0.01, -0.009, 0.004, 0.002)[None].to(dev))
+    ref = geometry.camera_projection(k, torch.eye(4, device=dev)[None])
+    x, y = warp.plane_sweep_coords(proj, ref, hyp, h, w)
+    plain = plane_warp.plane_sweep_sample_plain(src, x, y)
+    before = plane_warp.KERNEL.launches
+    got = warp.plane_sweep_warp(src, proj, ref, hyp)
+    assert plane_warp.KERNEL.launches == before + 1
+    assert torch.equal(got, plain)
+    assert torch.equal(plane_warp.plane_sweep_sample(
+        src, x.reshape(b, d, h, w), y.reshape(b, d, h, w)), plain)
     assert (got == 0).any() and (got != 0).any()
 
 
