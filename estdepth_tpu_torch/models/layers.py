@@ -2,15 +2,19 @@
 estdepth_tpu/models/layers.py).
 
 Modules here are NCHW / NCDHW. `conv_bn` is the reference's convbn
-(layers_op.py:10-39): an `nn.Sequential(conv, bn)` so that state_dict names
-are `<name>.0.weight` and `<name>.1.*`, the names
+(layers_op.py:10-39): a `ConvBN`, an `nn.Sequential(conv, bn)`, so that
+state_dict names are `<name>.0.weight` and `<name>.1.*`, the names
 estdepth_tpu/utils/convert.py:export_state_dict emits. BatchNorm is
 `nn.BatchNorm2d/3d` (eps 1e-5, momentum 0.1), whose train mode is the JAX
 package's TorchBatchNorm: the biased batch variance normalizes, the
 unbiased one updates `running_var`. In eval mode (the model's resting
-state) it normalizes with the running statistics. `convert_sync_batchnorm`
-swaps every BatchNorm for `SyncBatchNorm2d/3d`, the JAX package's
-TorchBatchNorm(axis_name="data"): statistics averaged over a data mesh.
+state) it normalizes with the running statistics, a per-channel affine map
+of the convolution's output: a grad-free float32 eval forward of a
+`conv_bn` block folds that map into the convolution's epilogue, one
+in-place scale-and-shift of its output in place of the BatchNorm kernel
+(`ConvBN`). `convert_sync_batchnorm` swaps every BatchNorm for
+`SyncBatchNorm2d/3d`, the JAX package's TorchBatchNorm(axis_name="data"):
+statistics averaged over a data mesh.
 
 The JAX package's TPU re-expressions of the 3D conv (Decomp3DConv,
 PackedConv3D, conv3d_as2d) bind the same parameters as a plain conv3d and
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from estdepth_tpu_torch.ops import shard_context
+from estdepth_tpu_torch.utils import trace
 
 # flax's truncated-normal variance scaling divides the normal's stddev by
 # the stddev of a unit normal truncated to [-2, 2]
@@ -126,7 +131,7 @@ class MaxPool2d(nn.MaxPool2d):
 def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
             pad: int | None = None, dilation: int = 1, dims: int = 2,
             zero_bn_scale: bool = False, act: str | None = None
-            ) -> nn.Sequential:
+            ) -> ConvBN:
     """Conv(bias=False) + BatchNorm (+ ReLU or tanh).
 
     The padding defaults to kernel // 2, and a dilation > 1 forces
@@ -145,7 +150,7 @@ def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
 
 def deconv_bn(cin: int, cout: int, kernel: int = 3, stride: int = 2,
               pad: int = 1, output_pad: int = 1, act: str | None = "relu"
-              ) -> nn.Sequential:
+              ) -> ConvBN:
     """ConvTranspose3d(bias=False) + BatchNorm3d (+ ReLU): CasMVSNet's
     Deconv3d (cascade-stereo models/module.py), which with the defaults
     doubles each of D, H and W. Named as conv_bn's: `<name>.0.weight`,
@@ -155,8 +160,7 @@ def deconv_bn(cin: int, cout: int, kernel: int = 3, stride: int = 2,
     return _with_bn(conv, nn.BatchNorm3d(cout, eps=1e-5), act)
 
 
-def _with_bn(conv: nn.Module, bn: nn.Module, act: str | None
-             ) -> nn.Sequential:
+def _with_bn(conv: nn.Module, bn: nn.Module, act: str | None) -> ConvBN:
     conv.he_init = True
     layers = [conv, bn]
     if act == "relu":
@@ -165,7 +169,65 @@ def _with_bn(conv: nn.Module, bn: nn.Module, act: str | None
         layers.append(nn.Tanh())
     elif act is not None:
         raise ValueError(f"unknown activation {act!r}")
-    return nn.Sequential(*layers)
+    return ConvBN(*layers)
+
+
+class ConvBN(nn.Sequential):
+    """A bias-free convolution, its BatchNorm and an optional activation,
+    as `nn.Sequential` runs them, with the same children and names.
+
+    An eval-mode BatchNorm is a per-channel affine map of the convolution's
+    output, s y + beta - mean s with s = gamma / sqrt(var + eps). Where
+    that holds and nothing needs the separate op (BatchNorm in eval mode,
+    grad disabled, a float32 input, no torch.export tracing), the block
+    folds the map into the convolution's epilogue: the convolution, one
+    in-place scale-and-shift of its output (`torch.addcmul`), the
+    activation; no BatchNorm kernel runs. The convolution keeps its
+    weight: a weight scaled by s rounds the convolution's sums otherwise,
+    and ATen's CUDA path adds a convolution's bias in a pass of its own,
+    which costs what this pass costs. (s, beta - mean s) is computed in
+    float64, rounded once to float32, kept on the block and rebuilt when
+    the storage, version, device or dtype of gamma, beta or a running
+    statistic changes (load_state_dict, .to(), an in-place edit).
+    Training, eval with grad on, bf16 and exported programs run the
+    children as they are. Counters (utils/trace.py): `layers.bn_folded`,
+    and `layers.bn_unfolded` for the other eval-mode grad-free calls."""
+
+    _fold = None  # (key, scale, shift)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self[1].training or torch.is_grad_enabled():
+            return super().forward(x)
+        folded = None
+        if x.dtype == torch.float32 and not torch.compiler.is_exporting():
+            folded = self._folded(x.dim())
+        if folded is None:
+            trace.count("layers.bn_unfolded")
+            return super().forward(x)
+        trace.count("layers.bn_folded")
+        scale, shift = folded
+        y = self[0](x)
+        y = torch.addcmul(shift, y, scale, out=y)
+        return self[2](y) if len(self) > 2 else y
+
+    def _folded(self, dims: int):
+        """(scale, shift) shaped [C, 1, ...] for an output of `dims` axes,
+        or None where a source tensor is an inference tensor, which keeps
+        no version to check the cache by."""
+        bn = self[1]
+        sources = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        try:
+            key = tuple((t.data_ptr(), t._version, t.device, t.dtype)
+                        for t in sources)
+        except RuntimeError:
+            return None
+        if self._fold is None or self._fold[0] != key:
+            gamma, beta, mean, var = (t.double() for t in sources)
+            s = gamma * torch.rsqrt(var + bn.eps)
+            shape = (-1, *[1] * (dims - 2))
+            self._fold = (key, s.float().view(shape),
+                          (beta - mean * s).float().view(shape))
+        return self._fold[1:]
 
 
 class _SyncBatchNorm:

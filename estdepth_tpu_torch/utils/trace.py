@@ -34,8 +34,13 @@ CPU it counts the keys all the same),
 maps, views through its feature net and D h w summed over its stages),
 `launches.<stem>`
 and `launches_bf16.<stem>` (a CUDA kernel's launches, both instances and
-the bfloat16 one; ops/cuda/build.Kernel). They count the eager model's
-calls: an exported program (serving.py) runs without them.
+the bfloat16 one; ops/cuda/build.Kernel), `layers.bn_folded` (eval-mode,
+grad-free `conv_bn` blocks run as one convolution with the BatchNorm
+folded in) and `layers.bn_unfolded` (eval-mode, grad-free blocks that ran
+the BatchNorm as its own op: a bf16 input, torch.export tracing;
+models/layers.ConvBN; training and grad-on calls count in neither). They
+count the eager model's calls: an exported program (serving.py) runs
+without them.
 """
 
 from __future__ import annotations

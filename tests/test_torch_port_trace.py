@@ -4,10 +4,10 @@ CPU, at the tiny configuration (ndepths 8, 64x96, ResNet-18).
 With no profiler a span is the shared no-op and no profiler range opens.
 Under torch.profiler one runner request or training step opens one
 `estdepth::step`, with the cost volume and EST fusion inside it where they
-run. The counters count the matching encoder's frames and the forward's
-targets, and the encoder calls at a new shape; the kernels' launch counts
-read the same registry, and the serving export traces no profiler op into
-its programs. The matching encoder runs with cuDNN's measured plan choice
+run. The counters count the matching encoder's frames, the forward's
+targets and its folded conv_bn blocks, and the encoder calls at a new
+shape; the kernels' launch counts read the same registry, and the serving
+export traces no profiler op into its programs. The matching encoder runs with cuDNN's measured plan choice
 on and every other flag as its caller set it, also when it raises.
 """
 
@@ -27,7 +27,7 @@ from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream, synthetic_window,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
-from estdepth_tpu_torch.models import estdepth
+from estdepth_tpu_torch.models import estdepth, layers
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops.cuda import plane_warp
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -163,14 +163,17 @@ def test_counters_of_a_joint_window_and_a_steady_stream_frame(model,
     monkeypatch.setattr(trace, "_seen", collections.defaultdict(set))
     runner = JointRunner(model, device="cpu")
     w = _window()
+    # each conv_bn block of the model runs once, folded
+    blocks = sum(isinstance(m, layers.ConvBN) for m in model.modules())
     assert _grown(lambda: runner.run_window(
         w["imgs"], w["cam_poses"], w["cam_intr"])) == {
         "matching.frames": 5, "model.targets": 3,
-        "matching.plan_searches": 1}
+        "matching.plan_searches": 1, "layers.bn_folded": blocks}
     stream, frame = _stream_runner(model, frames)
     assert _grown(lambda: stream.push_frame(
         frame["img"], frame["cam_pose"], frame["cam_intr"])) == {
-        "matching.frames": 1, "model.targets": 1}
+        "matching.frames": 1, "model.targets": 1,
+        "layers.bn_folded": blocks}
 
 
 def test_plan_searches_count_each_new_matching_shape_once(model, frames,
