@@ -8,11 +8,11 @@ the fixture, not at import). On a machine with the card:
 The four warp kernels repeat their plain version's arithmetic operation
 by operation (no FMA contraction) and are held to it bit for bit
 (`torch.equal`), in both instances; chip_smoke.py holds them so at the
-flagship shapes, and the frustum warps also at a rolled pose.
+flagship shapes too, where it times them for PERF.md's table of kernels.
 Their gradients on the card are autograd of the plain versions, held to
 autograd of the plain version called directly at 3e-5 of the gradient's
 scale (both scatter-add with float atomics, in an order that changes from
-run to run; chip_smoke.py measures up to 5.3e-6 at the flagship shapes).
+run to run; up to 5.3e-6 at the flagship shapes).
 The attention kernel sums its 16 channels and its softmax in another order
 than PyTorch's reductions, so it is held to rtol 1e-5 / atol 1e-6, the
 tolerance the JAX package holds its TPU kernel to (tests/test_pallas.py).
@@ -23,6 +23,23 @@ the kernels from its op nodes and equals a card ESTMRunner within 1e-5.
 Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
+
+The paths at the small size (64x96, D = 8, ResNet-18): the ESTM stream,
+the Joint chain in both frustum modes, the training step through the
+two-pass sweep, each in float32 and bf16, launch exactly their kernels
+(a bf16 run only bf16 instances), and between them all five in each
+dtype. Small chains on the card against the same model on the CPU: the
+stream (float32 at 8e-3; bf16, also of the SENet model, within twice the
+card's own bf16-against-float32 distance), the Joint chain in both modes
+at 8e-3, 3 training steps through the two-pass sweep at the PARITY.md
+trajectory tolerances, and one NCCL rank against one device in both
+dtypes. Artifacts exported on the card (the Joint step with the plane-mix
+warp and the attention kernel, the stream step with the two-pass sweep,
+the bf16 stream step) launch their kernels from their op nodes and equal
+the live runners within 1e-5 (bf16: the export tool's bound). The
+full-width paths are the benchmark's cells (portbench/), whose runs check
+their output against its plain reference, and, for the routes no cell
+runs, chip_smoke.py's launch and range checks.
 Without JAX on the card's machine, run with `--noconftest`.
 """
 
@@ -412,11 +429,9 @@ def test_train_step_launches_the_kernels_and_remat_relaunches_them(dev):
     frustum warp per target in the forward, their gradients through the
     plain versions; with remat the recomputed forward launches each again,
     and the loss and the gradient norm are the plain step's."""
-    from estdepth_tpu_torch.config import ModelConfig
     from estdepth_tpu_torch.data.synthetic import (
         SyntheticSceneConfig, synthetic_window,
     )
-    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
     from estdepth_tpu_torch.train.trainer import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -426,19 +441,16 @@ def test_train_step_launches_the_kernels_and_remat_relaunches_them(dev):
     batch = {k: torch.from_numpy(v).to(dev) for k, v in window.items()}
     results = {}
     for remat in (False, True):
-        model = DepthNetHybrid(ModelConfig(
-            ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18), seed=0)
-        model.to(dev)
+        model = _small_model().to(dev)
         opt = torch.optim.SGD(model.parameters(), lr=1e-3)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0)
         step = make_train_step(model, opt, sched, 0.5, 8.0, remat=remat,
                                remat_policy="save_features")
-        before = (plane_warp.KERNEL.launches,
-                  plane_warp_exact_z.KERNEL.launches)
+        before = _counts()
         scalars = step(batch, 10.0)
-        launched = (plane_warp.KERNEL.launches - before[0],
-                    plane_warp_exact_z.KERNEL.launches - before[1])
-        assert launched == ((2, 4) if remat else (1, 2))
+        _assert_launched(before, "float32", {
+            "plane_sweep_warp": 2 if remat else 1,
+            "frustum_warp_exact_z": 4 if remat else 2})
         results[remat] = (float(scalars["loss"]),
                           float(scalars["grad_norm"]),
                           int(model.pre0[1].num_batches_tracked))
@@ -507,34 +519,27 @@ def test_cpu_exported_artifact_launches_the_kernels_on_the_card(dev,
     frustum warp per EST window), never the plain version, and its maps
     equal a card ESTMRunner's within 1e-5."""
     from estdepth_tpu_torch import serving
-    from estdepth_tpu_torch.config import ModelConfig
     from estdepth_tpu_torch.data.synthetic import (
         SyntheticSceneConfig, synthetic_stream,
     )
-    from estdepth_tpu_torch.eval.estm import ESTMRunner
-    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18)
-    serving.export_stream(DepthNetHybrid(cfg, seed=0), height=64, width=96,
+    serving.export_stream(_small_model(), height=64, width=96,
                           output_scales=(0, 2), device="cpu").save(
         str(tmp_path))
     runner = serving.load_stream(str(tmp_path), device=dev)
-    live = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
-                      output_scales=(0, 2), device=dev)
     frames = list(synthetic_stream(SyntheticSceneConfig(
         height=64, width=96, focal=80.0), 6, 0.5, 8.0))
-    kernels = (plane_warp.KERNEL, plane_warp_exact_z.KERNEL)
-    before = [k.launches for k in kernels]
+    before = _counts()
     got = [out for f in frames if (out := runner.push_frame(
         f["img"], f["cam_pose"], f["cam_intr"])) is not None]
-    assert [k.launches - n for k, n in zip(kernels, before)] == [4, 3]
-    want = [out for f in frames if (out := live.push_frame(
-        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    _assert_launched(before, "float32", {"plane_sweep_warp": 4,
+                                         "frustum_warp_exact_z": 3})
+    want = [out[:, [0, 2]] for out in _stream(_small_model(), frames, dev)]
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
 
 
 # ---- the bf16 instances (the bf16 model's kernels) ----------------------
@@ -623,35 +628,31 @@ def test_attention_bf16_instance_within_one_ulp(dev, valid):
         tk, wk, wv, valid))
 
 
-def test_bf16_stream_on_the_card_matches_cpu(dev):
+def _bf16_stream_against_cpu(dev, frames, **options):
     """A small bf16 ESTM stream through the bf16 instances against the
     same model on the CPU: within 2x the card's own bf16-against-float32
     distance on the same frames (bf16 rounds differently on the two
-    devices' convolutions)."""
-    from estdepth_tpu_torch.config import ModelConfig, torch_dtype
-    from estdepth_tpu_torch.data.synthetic import (
-        SyntheticSceneConfig, synthetic_stream,
-    )
+    devices' convolutions). `options` are further ModelConfig fields.
+    On the card each stream launches one sweep a window step and one
+    exact-z warp a step after the first, in its dtype's instances."""
+    from estdepth_tpu_torch.config import torch_dtype
     from estdepth_tpu_torch.eval.estm import ESTMRunner
-    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 
     torch.backends.cudnn.allow_tf32 = False
-    frames = list(synthetic_stream(SyntheticSceneConfig(
-        height=64, width=96, focal=80.0), 6, 0.5, 8.0))
+    steps = len(frames) - 2
     outs = {}
     for dtype, device in (("float32", dev), ("bfloat16", dev),
                           ("bfloat16", "cpu")):
-        cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
-                          compute_dtype=dtype)
-        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
-                            device=device)
-        before = plane_warp_exact_z.KERNEL.launches_bf16
+        runner = ESTMRunner(_small_model(compute_dtype=dtype, **options), 64,
+                            96, device=device)
+        before = _counts()
         outs[dtype, str(device)] = [
             out.cpu() for f in frames if (out := runner.push_frame(
                 f["img"], f["cam_pose"], f["cam_intr"])) is not None]
         assert runner.memory.keys.dtype == torch_dtype(dtype)
-        if dtype == "bfloat16" and device == dev:
-            assert plane_warp_exact_z.KERNEL.launches_bf16 == before + 3
+        if device == dev:
+            _assert_launched(before, dtype, {
+                "plane_sweep_warp": steps, "frustum_warp_exact_z": steps - 1})
 
     def dist(a, b):
         return max((x - y).abs().max().item() for x, y in zip(a, b))
@@ -659,6 +660,21 @@ def test_bf16_stream_on_the_card_matches_cpu(dev):
     own = dist(outs["bfloat16", str(dev)], outs["float32", str(dev)])
     assert dist(outs["bfloat16", str(dev)], outs["bfloat16", "cpu"]) <= (
         2 * own)
+
+
+def test_bf16_stream_on_the_card_matches_cpu(dev):
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_stream,
+    )
+
+    _bf16_stream_against_cpu(dev, list(synthetic_stream(SyntheticSceneConfig(
+        height=64, width=96, focal=80.0), 6, 0.5, 8.0)))
+
+
+def test_senet_bf16_stream_on_the_card_matches_cpu(dev):
+    """The same for the SENet model (SEFeatureNet as the matching
+    encoder), on the pitched frames."""
+    _bf16_stream_against_cpu(dev, _pitched_frames(7), feature_net="senet")
 
 
 def test_one_nccl_rank_matches_the_one_device_step(dev, tmp_path):
@@ -670,6 +686,21 @@ def test_one_nccl_rank_matches_the_one_device_step(dev, tmp_path):
     launches. The ranks' own tests over gloo on the CPU are
     tests/test_torch_port_parallel.py (it imports JAX, which the card's
     machine lacks)."""
+    runs = {name: _train_tool_run(tmp_path / name, nccl)
+            for name, nccl in (("one", False), ("nccl", True))}
+    assert not torch.distributed.is_initialized()
+    np.testing.assert_allclose(runs["nccl"][0], runs["one"][0], rtol=3e-3)
+    for k, want in runs["one"][1].items():
+        np.testing.assert_allclose(runs["nccl"][1][k].numpy(), want.numpy(),
+                                   rtol=5e-3, atol=5e-4, err_msg=k)
+    assert runs["nccl"][2] == runs["one"][2] == [3, 6]
+
+
+def _train_tool_run(logdir, nccl: bool, bf16: bool = False):
+    """3 steps of tools/train.py at the small size, on one device or (with
+    `nccl`) as the one rank of a --multihost data mesh: (losses, BatchNorm
+    running statistics, launches of kernels 1 and 2, of which bf16
+    instances)."""
     import socket
 
     from estdepth_tpu_torch.tools import train
@@ -680,26 +711,38 @@ def test_one_nccl_rank_matches_the_one_device_step(dev, tmp_path):
     flags = ["--synthetic", "--steps", "3", "--height", "64", "--width",
              "96", "--ndepths", "8", "--depth-min", "0.5", "--depth-max",
              "8.0", "--resnet", "18", "--n-frames", "4", "--summary-freq",
-             "1", "--seed", "0", "--num-workers", "1"]
+             "1", "--seed", "0", "--num-workers", "1", "--logdir",
+             str(logdir)]
+    if nccl:
+        flags += ["--multihost", "--coordinator", f"localhost:{port}",
+                  "--num-processes", "1", "--process-id", "0"]
+    if bf16:
+        flags.append("--bf16")
     kernels = (plane_warp.KERNEL, plane_warp_exact_z.KERNEL)
-    runs = {}
-    for name, extra in (("one", []), ("nccl", [
-            "--multihost", "--coordinator", f"localhost:{port}",
-            "--num-processes", "1", "--process-id", "0"])):
-        before = [k.launches for k in kernels]
-        res = train.run(train.parse_args(
-            flags + ["--logdir", str(tmp_path / name)] + extra))
-        runs[name] = ([r["loss"] for r in res["records"]],
-                      {k: v.cpu() for k, v in
-                       res["state"].model.state_dict().items()
-                       if k.endswith(("running_mean", "running_var"))},
-                      [k.launches - b for k, b in zip(kernels, before)])
+    before = [(k.launches, k.launches_bf16) for k in kernels]
+    res = train.run(train.parse_args(flags))
+    return ([r["loss"] for r in res["records"]],
+            {k: v.float().cpu() for k, v in
+             res["state"].model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))},
+            [k.launches - b[0] for k, b in zip(kernels, before)],
+            [k.launches_bf16 - b[1] for k, b in zip(kernels, before)])
+
+
+def test_one_nccl_rank_matches_the_one_device_step_in_bf16(dev, tmp_path):
+    """The same in bf16 (`--bf16`): the losses at rtol 3e-3, the BatchNorm
+    statistics within twice the one-device bf16 run's own largest distance
+    from the float32 run's (the port's bf16 rule), and only bf16 instances
+    launched."""
+    f32 = _train_tool_run(tmp_path / "f32", nccl=False)
+    one = _train_tool_run(tmp_path / "one", nccl=False, bf16=True)
+    ddp = _train_tool_run(tmp_path / "nccl", nccl=True, bf16=True)
     assert not torch.distributed.is_initialized()
-    np.testing.assert_allclose(runs["nccl"][0], runs["one"][0], rtol=3e-3)
-    for k, want in runs["one"][1].items():
-        np.testing.assert_allclose(runs["nccl"][1][k].numpy(), want.numpy(),
-                                   rtol=5e-3, atol=5e-4, err_msg=k)
-    assert runs["nccl"][2] == runs["one"][2] == [3, 6]
+    np.testing.assert_allclose(ddp[0], one[0], rtol=3e-3)
+    own = max(float((one[1][k] - v).abs().max()) for k, v in f32[1].items())
+    worst = max(float((ddp[1][k] - v).abs().max()) for k, v in one[1].items())
+    assert worst <= 2 * own, (worst, own)
+    assert ddp[2] == ddp[3] == one[2] == one[3] == [3, 6]
 
 
 def test_senet_stream_on_the_card_matches_cpu(dev):
@@ -708,32 +751,15 @@ def test_senet_stream_on_the_card_matches_cpu(dev):
     the CPU: all 4 scales within the chain tolerance 8e-3, and the
     kernels launched once per window (the sweep) and once per EST window
     (the exact-z warp)."""
-    from estdepth_tpu_torch.config import ModelConfig
-    from estdepth_tpu_torch.data.synthetic import (
-        SyntheticSceneConfig, synthetic_stream,
-    )
-    from estdepth_tpu_torch.eval.estm import ESTMRunner
-    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
-
     torch.backends.cudnn.allow_tf32 = False
-    frames = list(synthetic_stream(SyntheticSceneConfig(
-        height=64, width=96, focal=80.0), 6, 0.5, 8.0))
-    for i, f in enumerate(frames):  # no coordinate on the border
-        f["cam_pose"] = f["cam_pose"] @ _pose(
-            0.0, 0.011 * i, 0.0, 0.0, 0.013 * i + 0.002).numpy()
-    cfg = ModelConfig(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18,
-                      feature_net="senet")
+    frames = _pitched_frames(6)
     outs = {}
     for device in ("cpu", dev):
-        runner = ESTMRunner(DepthNetHybrid(cfg, seed=0), 64, 96,
-                            device=device)
-        sweeps = plane_warp.KERNEL.launches
-        warps = plane_warp_exact_z.KERNEL.launches
-        outs[str(device)] = [
-            out.cpu() for f in frames if (out := runner.push_frame(
-                f["img"], f["cam_pose"], f["cam_intr"])) is not None]
-    assert plane_warp.KERNEL.launches == sweeps + 4
-    assert plane_warp_exact_z.KERNEL.launches == warps + 3
+        before = _counts()
+        outs[str(device)] = _stream(_small_model(feature_net="senet"), frames,
+                                    device)
+    _assert_launched(before, "float32", {"plane_sweep_warp": 4,
+                                         "frustum_warp_exact_z": 3})
     err = max((a - b).abs().max().item()
               for a, b in zip(outs["cpu"], outs[str(dev)]))
     assert len(outs[str(dev)]) == 4 and err < 8e-3, err
@@ -744,30 +770,333 @@ def test_scene_batch_on_the_card_equals_one_scene_at_a_time(dev, tmp_path):
     scenes of 9, 12 and 7 frames (a group of two and a partial group of
     one) against --scene-batch 1 on the card: within 1e-3 (cuDNN may pick
     another algorithm at another batch)."""
-    from estdepth_tpu_torch.data.synthetic import (
-        SyntheticSceneConfig, pose, write_scannet_scene,
-    )
     from estdepth_tpu_torch.tools import eval_estm, eval_joint
 
-    torch.backends.cudnn.allow_tf32 = False
-    for seed, n in enumerate((9, 12, 7)):
-        cfg = SyntheticSceneConfig(height=96, width=128, focal=115.574,
-                                   seed=seed)
-        write_scannet_scene(
-            str(tmp_path / f"scene{seed:04d}_00"), cfg,
-            [pose(cfg, i) @ _pose(0.0, 0.011 * i, 0.0, 0.0,
-                                  0.013 * i + 0.002).numpy()
-             for i in range(n)])
-    argv = ["--datapath", str(tmp_path), "--height", "64", "--width", "96",
-            "--ndepths", "8", "--resnet", "18", "--frame-interval", "1",
-            "--depth-min", "0.5", "--depth-max", "8.0", "--scan",
-            "--device", str(dev)]
+    argv = _scan_scenes(dev, tmp_path)
     for tool, n in ((eval_estm, 7 + 10 + 5), (eval_joint, 2 + 3 + 1)):
         maps = [np.stack(tool.run(tool.parse_args(
             argv + ["--scene-batch", b]), keep_maps=True)["maps"])
             for b in ("1", "2")]
         assert len(maps[0]) == len(maps[1]) == n
         np.testing.assert_allclose(maps[1], maps[0], atol=1e-3, rtol=0)
+
+
+# ESTM window steps (lwindow 3) and Joint windows (5 frames advancing by
+# 3) of the three scenes _scan_scenes writes, in the order they are read
+SCAN_FRAMES = (9, 12, 7)
+SCAN_WINDOWS = {"estm": [n - 2 for n in SCAN_FRAMES],
+                "joint": [len(range(0, n - 5, 3)) for n in SCAN_FRAMES]}
+
+
+def _scan_scenes(dev, root) -> list[str]:
+    """Three ScanNet-layout scenes of SCAN_FRAMES frames under `root`; the
+    eval tools' flags that scan them on `dev` at the small size."""
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, pose, write_scannet_scene,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    for seed, n in enumerate(SCAN_FRAMES):
+        cfg = SyntheticSceneConfig(height=96, width=128, focal=115.574,
+                                   seed=seed)
+        write_scannet_scene(
+            str(root / f"scene{seed:04d}_00"), cfg,
+            [pose(cfg, i) @ _pose(0.0, 0.011 * i, 0.0, 0.0,
+                                  0.013 * i + 0.002).numpy()
+             for i in range(n)])
+    return ["--datapath", str(root), "--height", "64", "--width", "96",
+            "--ndepths", "8", "--resnet", "18", "--frame-interval", "1",
+            "--depth-min", "0.5", "--depth-max", "8.0", "--scan",
+            "--device", str(dev)]
+
+
+def test_bf16_scene_batch_on_the_card_launches_as_one_scene(dev, tmp_path):
+    """Both eval tools at --scan --bf16 over the three scenes of
+    test_scene_batch_on_the_card_equals_one_scene_at_a_time: the
+    --scene-batch 2 maps within twice the --scene-batch 1 bf16 maps'
+    distance from the float32 ones (cuDNN's other algorithm at another
+    batch rounds bf16 elsewhere), and a group of scenes launches each
+    kernel as its longest scene alone does (the batch folds into each
+    launch; bf16 instances only): one sweep a window step, one exact-z
+    warp a step with EST (ESTM: a step; Joint: a target of a window)
+    after the first."""
+    from estdepth_tpu_torch.tools import eval_estm, eval_joint
+
+    argv = _scan_scenes(dev, tmp_path)
+    for tool, protocol, per_window in ((eval_estm, "estm", 1),
+                                       (eval_joint, "joint", 3)):
+        maps = {}
+        for batch, dtype in ((1, "float32"), (1, "bfloat16"),
+                             (2, "bfloat16")):
+            before = _counts()
+            maps[batch, dtype] = np.stack(tool.run(tool.parse_args(
+                argv + ["--scene-batch", str(batch)]
+                + (["--bf16"] if dtype == "bfloat16" else [])),
+                keep_maps=True)["maps"]).astype(np.float32)
+            windows = SCAN_WINDOWS[protocol]
+            groups = [max(windows[i:i + batch])
+                      for i in range(0, len(windows), batch)]
+            _assert_launched(before, dtype, {
+                "plane_sweep_warp": sum(groups),
+                "frustum_warp_exact_z": per_window * sum(
+                    n - 1 for n in groups)})
+        own = np.abs(maps[1, "bfloat16"] - maps[1, "float32"]).max()
+        err = np.abs(maps[2, "bfloat16"] - maps[1, "bfloat16"]).max()
+        assert len(maps[2, "bfloat16"]) == len(maps[1, "float32"])
+        assert err <= 2 * own, (protocol, err, own)
+
+
+# ---- the paths at the small size, card against CPU -----------------------
+
+SMALL = dict(ndepths=8, depth_min=0.5, depth_max=8.0, resnet=18)
+# the five kernels, in the order of PERF.md's table of TPU kernels
+KERNELS = {"plane_sweep_warp": plane_warp.KERNEL,
+           "frustum_warp_exact_z": plane_warp_exact_z.KERNEL,
+           "two_pass_resample": two_pass.KERNEL,
+           "frustum_warp_plane_mix": plane_mix.KERNEL,
+           "epipolar_attention": epipolar_attention.KERNEL}
+JOINT_MODES = {"plane_mix_exact_z": {},
+               "plane_mix": dict(frustum_mode="plane_mix",
+                                 use_fused_attention=True)}
+# Each path's ModelConfig fields and launches: a 7-frame stream (5 window
+# steps, EST from the second: one sweep a step, one exact-z warp a step
+# after the first); 3 Joint windows (one sweep launch a window, one
+# frustum warp and one attention call a target of each window after the
+# first); 2 training steps on 4-frame windows through the two-pass sweep
+# (one resample a step, one exact-z warp a target).
+PATHS = {
+    "stream": ({}, {"plane_sweep_warp": 5, "frustum_warp_exact_z": 4}),
+    "joint": (JOINT_MODES["plane_mix_exact_z"],
+              {"plane_sweep_warp": 3, "frustum_warp_exact_z": 6}),
+    "joint_plane_mix": (JOINT_MODES["plane_mix"],
+                        {"plane_sweep_warp": 3, "frustum_warp_plane_mix": 6,
+                         "epipolar_attention": 6}),
+    "train_two_pass": (dict(two_pass_warp=True),
+                       {"two_pass_resample": 2, "frustum_warp_exact_z": 4}),
+}
+TRAIN_WINDOWS = [(0, 4), (2, 6), (3, 7)]  # frames [lo, hi) of a step
+
+
+def _pitched_frames(n: int) -> list[dict]:
+    """A small synthetic stream (64x96) with a seeded pitch and lift on
+    the camera path, so that no warp coordinate sits exactly on the image
+    border, where float noise would decide the hard out-of-range mask."""
+    from estdepth_tpu_torch.data.synthetic import (
+        SyntheticSceneConfig, synthetic_stream,
+    )
+
+    frames = list(synthetic_stream(SyntheticSceneConfig(
+        height=64, width=96, focal=80.0), n, 0.5, 8.0))
+    for i, f in enumerate(frames):
+        f["cam_pose"] = f["cam_pose"] @ _pose(
+            0.0, 0.011 * i, 0.0, 0.0, 0.013 * i + 0.002).numpy()
+    return frames
+
+
+def _small_model(**options):
+    from estdepth_tpu_torch.config import ModelConfig
+    from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
+
+    return DepthNetHybrid(ModelConfig(**SMALL, **options), seed=0)
+
+
+def _stream(model, frames, device) -> list:
+    """An ESTMRunner (lwindow 3, memory 2) over frames: each output's 4
+    depth scales on the host."""
+    from estdepth_tpu_torch.eval.estm import ESTMRunner
+
+    runner = ESTMRunner(model, 64, 96, device=device)
+    return [out.float().cpu() for f in frames if (out := runner.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+
+
+def _joint_windows(frames, windows: int):
+    """(imgs, poses, intr) of each 5-frame window, advancing by 3."""
+    imgs = np.stack([f["img"] for f in frames])[None]
+    poses = np.stack([f["cam_pose"] for f in frames])[None]
+    return [(imgs[:, 3 * wi:3 * wi + 5], poses[:, 3 * wi:3 * wi + 5],
+             frames[0]["cam_intr"][None]) for wi in range(windows)]
+
+
+def _joint_chain(model, frames, device, windows: int) -> list:
+    """A JointRunner over `windows` windows: each window's depth [1, 3, 4,
+    H, W] on the host."""
+    from estdepth_tpu_torch.tools.eval_joint import JointRunner
+
+    runner = JointRunner(model, device=device)
+    return [runner.run_window(*w)[0].float().cpu()
+            for w in _joint_windows(frames, windows)]
+
+
+def _train_steps(model, frames, device, windows) -> tuple[list, dict]:
+    """The trainer's step (Adam at the tool's schedule, clip 10) on the
+    4-frame windows of frames: (each step's loss, the BatchNorm running
+    statistics after the last)."""
+    from estdepth_tpu_torch.train.schedule import warmup_multistep_schedule
+    from estdepth_tpu_torch.train.trainer import (
+        make_optimizer, make_train_step,
+    )
+
+    model = model.to(device)
+    optimizer, scheduler = make_optimizer(
+        model.named_parameters(),
+        warmup_multistep_schedule(4e-5, steps_per_epoch=10**6))
+    step = make_train_step(model, optimizer, scheduler, 0.5, 8.0)
+
+    def batch(lo, hi):
+        arrays = {
+            "imgs": np.stack([f["img"] for f in frames[lo:hi]])[None],
+            "cam_poses": np.stack([f["cam_pose"]
+                                   for f in frames[lo:hi]])[None],
+            "cam_intr": frames[0]["cam_intr"][None],
+            "dmaps": np.stack([f["dmap"] for f in frames[lo + 1:hi - 1]])[
+                None],
+            "dmasks": np.stack([f["dmask"]
+                                for f in frames[lo + 1:hi - 1]])[None]}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in arrays.items()}
+
+    losses = [float(step(batch(lo, hi), 10.0)["loss"]) for lo, hi in windows]
+    return losses, {k: v.float().cpu() for k, v in model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+
+
+def _counts() -> dict:
+    return {name: (k.launches, k.launches_bf16) for name, k in KERNELS.items()}
+
+
+def _assert_launched(before: dict, dtype: str, expected: dict) -> None:
+    """Each kernel launched as `expected` says (0 where it does not name
+    it) since the counts `before`: a bfloat16 run only bf16 instances, a
+    float32 run none."""
+    torch.cuda.synchronize()
+    now = _counts()
+    launched = {name: now[name][0] - before[name][0] for name in KERNELS}
+    bf16 = {name: now[name][1] - before[name][1] for name in KERNELS}
+    assert launched == {**dict.fromkeys(KERNELS, 0), **expected}
+    assert bf16 == (launched if dtype == "bfloat16"
+                    else dict.fromkeys(KERNELS, 0))
+
+
+@pytest.mark.parametrize("path", ["joint", "joint_plane_mix",
+                                  "train_two_pass"])
+def test_path_launches_its_kernels(dev, path):
+    """Each path in bf16 launches exactly the kernels PATHS gives it, in
+    bf16 instances only. The stream's launches in both dtypes and these
+    paths' in float32 are held by the card-against-CPU tests, so that
+    between them the paths launch each of the five kernels in each
+    dtype."""
+    assert set().union(*(k for _, k in PATHS.values())) == set(KERNELS)
+    options, expected = PATHS[path]
+    model = _small_model(compute_dtype="bfloat16", **options)
+    before = _counts()
+    if path.startswith("joint"):
+        assert len(_joint_chain(model, _pitched_frames(11), dev, 3)) == 3
+    else:
+        losses, _ = _train_steps(model, _pitched_frames(7), dev,
+                                 TRAIN_WINDOWS[:2])
+        assert np.isfinite(losses).all()
+    _assert_launched(before, "bfloat16", expected)
+
+
+@pytest.mark.parametrize("mode", JOINT_MODES)
+def test_joint_chain_on_the_card_matches_cpu(dev, mode):
+    """3 Joint windows on the card through the kernels against the same
+    weights on the CPU, with the default exact-z warp and with the
+    plane-mix warp and the attention kernel: all 4 depth scales within the
+    chain tolerance 8e-3, and the card's run launching its PATHS kernels
+    in float32 instances."""
+    torch.backends.cudnn.allow_tf32 = False
+    frames = _pitched_frames(11)
+    outs = {}
+    for device in ("cpu", dev):
+        before = _counts()
+        outs[str(device)] = _joint_chain(_small_model(**JOINT_MODES[mode]),
+                                         frames, device, 3)
+    _assert_launched(before, "float32", PATHS[
+        "joint" if mode == "plane_mix_exact_z" else "joint_plane_mix"][1])
+    err = max((a - b).abs().max().item()
+              for a, b in zip(outs["cpu"], outs[str(dev)]))
+    assert outs[str(dev)][0].shape == (1, 3, 4, 64, 96)
+    assert err < 8e-3, err
+
+
+def test_two_pass_training_steps_on_the_card_match_cpu(dev):
+    """3 training steps through the two-pass sweep (kernel 3, its gradient
+    autograd of the plain version) on the card against the CPU, from the
+    same seeded weights and batches: each step's loss at rtol 3e-3 and
+    every BatchNorm running statistic at rtol 5e-3 (atol 5e-4), the
+    PARITY.md trajectory tolerances; on the card one two-pass resample a
+    step and one exact-z warp a target, in float32 instances."""
+    torch.backends.cudnn.allow_tf32 = False
+    frames = _pitched_frames(7)
+    runs = {}
+    for device in ("cpu", dev):
+        before = _counts()
+        runs[str(device)] = _train_steps(_small_model(two_pass_warp=True),
+                                         frames, device, TRAIN_WINDOWS)
+    _assert_launched(before, "float32", {"two_pass_resample": 3,
+                                         "frustum_warp_exact_z": 6})
+    (losses, stats), (want_losses, want_stats) = runs[str(dev)], runs["cpu"]
+    np.testing.assert_allclose(losses, want_losses, rtol=3e-3)
+    assert want_stats
+    for k, want in want_stats.items():
+        np.testing.assert_allclose(stats[k].numpy(), want.numpy(), rtol=5e-3,
+                                   atol=5e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("protocol", ["joint_plane_mix", "stream_two_pass",
+                                      "stream_bf16"])
+def test_card_exported_artifact_matches_the_live_runner(dev, tmp_path,
+                                                        protocol):
+    """A serving artifact exported on the card, loaded back and fed frame
+    by frame: the Joint step with the plane-mix warp and the attention
+    kernel (3 windows), the stream step through the two-pass sweep and the
+    bf16 stream step (5 window steps each). Its op nodes launch the
+    kernels in its dtype's instances (never the plain versions), a bf16
+    artifact's memory is bf16, and its maps equal the live runner's on the
+    same model within 1e-5 in float32. In bf16 the bound is the export
+    tool's own verification bound: the artifact's convolutions take
+    cuDNN's heuristic plans and the live matching encoder measured ones,
+    and bf16 rounds the two differently."""
+    from estdepth_tpu_torch import serving
+    from estdepth_tpu_torch.tools.export_serving import VERIFY_TOL
+
+    torch.backends.cudnn.allow_tf32 = False
+    scales = (0, 2)
+    dtype = "bfloat16" if protocol == "stream_bf16" else "float32"
+    if protocol == "joint_plane_mix":
+        model = _small_model(**JOINT_MODES["plane_mix"])
+        serving.export_joint(model, height=64, width=96, output_scales=scales,
+                             device=dev).save(str(tmp_path))
+        runner = serving.load_joint(str(tmp_path), device=dev)
+        frames = _pitched_frames(11)
+        expected = PATHS["joint_plane_mix"][1]
+        want = [out[:, :, list(scales)]
+                for out in _joint_chain(model, frames, dev, 3)]
+    else:
+        model = _small_model(**({"two_pass_warp": True}
+                                if protocol == "stream_two_pass"
+                                else {"compute_dtype": dtype}))
+        serving.export_stream(model, height=64, width=96,
+                              output_scales=scales, device=dev).save(
+            str(tmp_path))
+        runner = serving.load_stream(str(tmp_path), device=dev)
+        assert runner.manifest["memory_dtype"] == dtype
+        frames = _pitched_frames(7)
+        expected = ({"two_pass_resample": 5, "frustum_warp_exact_z": 4}
+                    if protocol == "stream_two_pass" else PATHS["stream"][1])
+        want = [out[:, list(scales)] for out in _stream(model, frames, dev)]
+    before = _counts()
+    got = [out for f in frames if (out := runner.push_frame(
+        f["img"], f["cam_pose"], f["cam_intr"])) is not None]
+    _assert_launched(before, dtype, expected)
+    assert len(got) == len(want) == (3 if protocol.startswith("joint")
+                                     else 5)
+    tol = VERIFY_TOL if dtype == "bfloat16" else 1e-5
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.float().cpu(), w, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
