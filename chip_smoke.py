@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's five CUDA kernels on one NVIDIA GPU: the table of kernels.
+"""The port's CUDA kernels on one NVIDIA GPU: the table of kernels.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,10 @@ autograd of the plain version called directly and their backward timed.
 Prints one line per kernel (`"phase": "kernel"`) and per gradient, then
 {"kernels": [...]}, one row per kernel: the numbers of PERF.md's table
 of TPU kernels. CasMVSNet's sweep (kernel 1 at per-pixel hypotheses) is
-held only by the `cuda` tests, at one stage's shape.
+held only by the `cuda` tests, at one stage's shape. The port's own
+variance kernel (CasMVSNet's cost volume, which replaces no TPU kernel)
+is held bit for bit and timed at the three DTU stages' shapes, its last
+row, with every instance's registers and spills.
 
 Then it drives, once each at the flagship width (ResNet-50), the routes
 that no benchmark cell runs: the Joint chain with the plane-mix warp and
@@ -78,7 +81,7 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp,
-    plane_warp_exact_z, two_pass,
+    plane_warp_exact_z, two_pass, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools import eval_joint, kernel_report
@@ -725,9 +728,47 @@ def phase_kernels() -> list[dict]:
         kern, nbytes(tk16) * (2 + 2 * n), flops, library=library16)
     row["bf16"]["library_err_in_ulps_of_scale"] = lib16_ulps
     rows.append(row)
+    rows.append(_view_variance_row(dev))
     for r in rows:
         log("kernel", **r)
     return rows
+
+
+# CasMVSNet's stages at the DTU setting (models/casmvsnet.py): h, w, C, D
+MVS_STAGES = [(288, 400, 32, 48), (576, 800, 16, 32), (1152, 1600, 8, 8)]
+MVS_SOURCES = 4  # a reference view and its 4 source views
+
+
+def _view_variance_row(dev) -> dict:
+    """The port's own variance kernel (CasMVSNet's cost volume, no TPU
+    counterpart) at each DTU stage's shape, on random features and
+    volumes: bit for bit its plain version, timed against its bytes (each
+    input read once, the NCDHW output written once; no operation
+    counted) and beside the plain version; with every instance's
+    registers, spills and shared memory."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = []
+    for h, w, c, d in MVS_STAGES:
+        ref = torch.randn(1, h, w, c, device=dev, generator=gen)
+        warped = [torch.randn(1, d, h, w, c, device=dev, generator=gen)
+                  for _ in range(MVS_SOURCES)]
+        m = _measure(
+            "view_variance",
+            lambda: view_variance.view_variance(ref, warped),
+            lambda: view_variance.view_variance_plain(ref, warped),
+            nbytes(ref, *warped) + nbytes(warped[0]), 0.0, exact=True)
+        stages.append({"h": h, "w": w, "c": c, "d": d, **m})
+        del ref, warped
+        torch.cuda.empty_cache()
+    report = [{k: r.get(k, 0) for k in ("kernel", "registers", "spill_bytes",
+                                         "smem_bytes")}
+              for r in _kernel_reports(["view_variance"])["view_variance"]]
+    return {"name": "view_variance", "route": "cuda",
+            "source": "estdepth_tpu_torch/csrc/view_variance.cu",
+            "replaces": None, "stages": stages, "report": report,
+            "ms": sum(m["ms"] for m in stages),
+            "bound_ms": sum(m["bound_ms"] for m in stages)}
+
 
 def _backward_ms(make_out, leaf, ct, reps: int = 5) -> float:
     """Median device time in ms of the backward alone: a fresh forward

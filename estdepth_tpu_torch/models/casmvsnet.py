@@ -20,8 +20,9 @@ three stages, at 1/4, 1/2 and full resolution:
 - each source view's features are swept to the hypotheses
   (ops/warp.plane_sweep_warp: kernel 1 on the card), and the variance
   sum v^2 / V - (sum v / V)^2 over the reference and the warped views is
-  accumulated one view at a time, as the published DepthNet does
-  (`mvs_cost_volume`, one span a stage);
+  summed one view at a time, in the published DepthNet's order, by one op
+  (ops/cuda/view_variance: on the card a kernel that reads each swept
+  volume once; `mvs_cost_volume`, one span a stage);
 - the stage's 3D U-Net (`CostRegNet`, `mvs_regularization`) turns the
   [B, C, D, h, w] variance into one logit a hypothesis, and the softmax
   over D gives the stage's depth sum_i p_i d_i (`mvs_regression`).
@@ -29,9 +30,10 @@ three stages, at 1/4, 1/2 and full resolution:
 The final stage also gives the photometric confidence: the probability of
 the 4 planes idx-1 .. idx+2 around idx = floor(sum_i i p_i), zeros
 outside (the published 4-plane avg_pool3d), computed for that stage only,
-whose confidence the network returns. The volumes are accumulated
-channels-last, [B, D, h, w, C], the sweep's layout, and handed to the
-U-Net as NCDHW. Float32 with TF32 off only (config.set_fp32_numerics).
+whose confidence the network returns. The swept volumes are
+channels-last, [B, D, h, w, C], the sweep's layout; the variance op
+writes the U-Net's NCDHW. Float32 with TF32 off only
+(config.set_fp32_numerics).
 
 Counters (utils/trace.py): `mvs.targets` (reference depth maps),
 `mvs.feature_views` (views through the feature net) and `mvs.hypotheses`
@@ -53,6 +55,7 @@ from estdepth_tpu_torch.models.layers import (
 from estdepth_tpu_torch.ops.geometry import (
     camera_projection, scale_intrinsics,
 )
+from estdepth_tpu_torch.ops.cuda.view_variance import view_variance
 from estdepth_tpu_torch.ops.warp import plane_sweep_warp
 from estdepth_tpu_torch.utils import trace
 
@@ -183,20 +186,13 @@ class CascadeMVSNet(nn.Module):
                   hyp: torch.Tensor) -> torch.Tensor:
         """maps [B, V, h, w, C] channels-last, proj [B, V, 4, 4] at the
         maps' scale, hyp [B, D, h, w] -> the variance over the V views
-        [B, C, D, h, w]."""
-        b, v, h, w, c = maps.shape
-        d = hyp.shape[1]
-        ref = maps[:, 0, None].expand(b, d, h, w, c)
-        total = ref.clone()
-        squares = ref.square()
-        for i in range(1, v):
-            warped = plane_sweep_warp(maps[:, i].contiguous(), proj[:, i],
-                                      proj[:, 0], hyp)
-            total += warped
-            squares += warped.square_()
-            del warped
-        var = squares.div_(v).sub_(total.div_(v).square_())
-        return var.permute(0, 4, 1, 2, 3).contiguous()
+        [B, C, D, h, w]: each source view swept to the hypotheses (kernel
+        1), then one `view_variance` over the reference and the V - 1
+        swept volumes, all kept until it has read them."""
+        warped = [plane_sweep_warp(maps[:, i].contiguous(), proj[:, i],
+                                   proj[:, 0], hyp)
+                  for i in range(1, maps.shape[1])]
+        return view_variance(maps[:, 0].contiguous(), warped)
 
     def forward(self, imgs: torch.Tensor, cam_poses: torch.Tensor,
                 cam_intr: torch.Tensor) -> dict:

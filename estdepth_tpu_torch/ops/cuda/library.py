@@ -1,4 +1,4 @@
-"""The five kernels as PyTorch operators: `estdepth::*` custom ops.
+"""The six kernels as PyTorch operators: `estdepth::*` custom ops.
 
 On a TPU a Pallas call lowers into the StableHLO of the program that runs
 it. Here a kernel is a ctypes call on raw pointers, which `torch.export`
@@ -22,11 +22,17 @@ on the card in place of the kernel. Each kernel is therefore one
 | estdepth::two_pass_resample    | 3      | ops/cuda/two_pass.py       |
 | estdepth::plane_mix_resample   | 4      | ops/cuda/plane_mix.py      |
 | estdepth::epipolar_attention   | 5      | ops/cuda/epipolar_attention.py |
+| estdepth::view_variance        | none   | ops/cuda/view_variance.py  |
+
+Kernels 1-5 replace the JAX package's TPU kernels; `view_variance`
+replaces none (CasMVSNet's variance over the views, which the JAX
+package does not have).
 
 Each module defines its op with `define` when it is imported;
-`load_ops()` imports all five, which a loaded program needs before it is
+`load_ops()` imports all six, which a loaded program needs before it is
 deserialized. The ops carry no autograd formula: kernels 1-4 get theirs
-from `build.sample_with_plain_grad`, and kernel 5 is forward-only.
+from `build.sample_with_plain_grad`, and kernel 5 and `view_variance` are
+forward-only.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ MODULES = {
     "two_pass_resample": "two_pass",
     "plane_mix_resample": "plane_mix",
     "epipolar_attention": "epipolar_attention",
+    "view_variance": "view_variance",
 }
 
 
@@ -65,7 +72,7 @@ def check_device(name: str, t: torch.Tensor) -> None:
 
 
 def load_ops() -> dict:
-    """Define all five ops (importing their modules); returns
+    """Define all six ops (importing their modules); returns
     {name: op}."""
     return {name: getattr(importlib.import_module(
         f"estdepth_tpu_torch.ops.cuda.{module}"), "OP")

@@ -20,7 +20,11 @@ The ESTM tool's dataset path (a scene written by data/png.py, a reference
 checkpoint) is held against its CPU run at the chain tolerance 8e-3. A
 serving artifact exported on the CPU and loaded onto the card launches
 the kernels from its op nodes and equals a card ESTMRunner within 1e-5.
-Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses.
+Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses, and
+the port's own variance kernel (CasMVSNet's cost volume, no TPU
+counterpart) at the three DTU stages' shapes on real sweeps, at odd
+widths and 1 to 16 source views, and inside the model's stage-2 cost
+volume.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 
@@ -52,6 +56,7 @@ import torch
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z, two_pass,
+    view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 
@@ -1205,3 +1210,116 @@ def test_matching_encoder_under_measured_plans_is_float32(dev):
     assert kernels and not [k for k in kernels if "tf32" in k.lower()]
     gap = float((got.cpu() - want).abs().max())
     assert gap <= 1e-4 * float(want.abs().max()), gap
+
+
+# CasMVSNet's stages at the DTU setting (models/casmvsnet.py): h, w, C, D
+MVS_STAGES = [(288, 400, 32, 48), (576, 800, 16, 32), (1152, 1600, 8, 8)]
+
+
+def _mvs_views(dev, h, w, c, d, sources=4, seed=0):
+    """One CasMVSNet stage of a DTU-like request: features [1, V, h, w, C]
+    of a reference and `sources` source views 3 cm apart at the DTU
+    focal, their projections [1, V, 4, 4] and per-pixel hypotheses
+    [1, D, h, w] around a depth map near 0.65 m."""
+    gen = torch.Generator().manual_seed(seed)
+    f = 2892.33 * w / 1600
+    k = torch.tensor([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1]])
+    poses = torch.stack([torch.eye(4)] + [
+        _pose(0.03 * i * (-1) ** i, -0.01 * i, -0.009 * i, 0.004 * i, 0.002)
+        for i in range(1, sources + 1)])
+    proj = geometry.camera_projection(k.expand(sources + 1, 3, 3), poses)
+    maps = torch.randn(1, sources + 1, h, w, c, generator=gen)
+    centre = 0.6 + 0.1 * torch.rand(1, h, w, generator=gen)
+    hyp = centre[:, None] + torch.linspace(-0.085, 0.085, d)[
+        None, :, None, None]
+    return maps.to(dev), proj[None].to(dev), hyp.to(dev)
+
+
+def _swept(maps, proj, hyp):
+    """The reference's features and each source view swept by kernel 1."""
+    return maps[:, 0].contiguous(), [
+        warp.plane_sweep_warp(maps[:, i].contiguous(), proj[:, i],
+                              proj[:, 0], hyp)
+        for i in range(1, maps.shape[1])]
+
+
+def _variance_launch(ref, warped):
+    before = view_variance.KERNEL.launches
+    got = view_variance.view_variance(ref, warped)
+    assert view_variance.KERNEL.launches == before + 1
+    b, h, w, c = ref.shape
+    assert got.shape == (b, c, warped[0].shape[1], h, w)
+    assert got.is_contiguous()
+    return got
+
+
+@pytest.mark.parametrize("stage", range(len(MVS_STAGES)))
+def test_view_variance_kernel_at_the_dtu_stages(dev, stage):
+    """The variance kernel at each stage's shape (its C = 32, 16, 8
+    instances) on 4 real per-pixel sweeps: `torch.equal` to its plain
+    version on the same card tensors, one launch a call."""
+    h, w, c, d = MVS_STAGES[stage]
+    ref, warped = _swept(*_mvs_views(dev, h, w, c, d, seed=stage))
+    assert all((x == 0).any() and (x != 0).any() for x in warped)
+    got = _variance_launch(ref, warped)
+    assert torch.equal(got, view_variance.view_variance_plain(ref, warped))
+
+
+@pytest.mark.parametrize("sources,c,w", [
+    (1, 8, 33), (16, 8, 33), (4, 16, 31), (16, 32, 17), (2, 32, 45),
+    (3, 12, 33), (5, 4, 31), (4, 64, 21)])
+def test_view_variance_kernel_at_odd_widths_and_view_counts(dev, sources,
+                                                            c, w):
+    """Odd widths (a ragged last tile of each plane), 1 and 16 source
+    views, and channel counts of the generic instance (C = 12, 4, 64):
+    bit for bit the plain version."""
+    ref, warped = _swept(*_mvs_views(dev, 24, w, c, 7, sources, seed=w))
+    got = _variance_launch(ref, warped)
+    assert torch.equal(got, view_variance.view_variance_plain(ref, warped))
+    assert (got != 0).any()
+
+
+def test_view_variance_kernel_refuses_what_it_cannot_take(dev):
+    """17 source views, a float64 or bfloat16 input, a strided volume or
+    a volume of another shape raise before any launch."""
+    ref, warped = _swept(*_mvs_views(dev, 24, 32, 8, 5, 1))
+    vol = warped[0]
+    before = view_variance.KERNEL.launches
+    for error, args in [
+            (ValueError, (ref, [vol] * 17)),
+            (TypeError, (ref.double(), [vol.double()])),
+            (TypeError, (ref, [vol.bfloat16()])),
+            (ValueError, (ref, [vol.transpose(2, 3).contiguous()
+                                .transpose(2, 3)])),
+            (ValueError, (ref, [vol, vol[:, :4].contiguous()])),
+            (ValueError, (ref.cpu(), [vol]))]:
+        with pytest.raises(error):
+            view_variance.view_variance(*args)
+    assert view_variance.KERNEL.launches == before
+
+
+def test_casmvsnet_cost_volume_on_the_card_is_its_plain_version(dev):
+    """A stage-2 cost volume of CascadeMVSNet at the DTU setting (the
+    model's own hypotheses around a stage-1 depth map): `_variance` on
+    the card launches kernel 1 once a source view and the variance kernel
+    once, and equals the variance computed on the same card tensors by
+    the module's plain function, called directly."""
+    from estdepth_tpu_torch.config import CascadeConfig
+    from estdepth_tpu_torch.models.casmvsnet import CascadeMVSNet
+
+    h, w, c, d = MVS_STAGES[1]
+    model = CascadeMVSNet(CascadeConfig())
+    assert model.cfg.stage_planes[1] == d
+    maps, proj, _ = _mvs_views(dev, h, w, c, d, seed=5)
+    prev = 0.6 + 0.1 * torch.rand(1, h // 2, w // 2,
+                                  generator=torch.Generator().manual_seed(6))
+    hyp = model._hypotheses(1, prev.to(dev), 1, 2 * h, 2 * w, dev)
+    assert hyp.shape == (1, d, h, w)
+    sweeps = plane_warp.KERNEL.launches
+    variances = view_variance.KERNEL.launches
+    with torch.inference_mode():
+        got = model._variance(maps, proj, hyp)
+    assert plane_warp.KERNEL.launches == sweeps + 4
+    assert view_variance.KERNEL.launches == variances + 1
+    assert torch.equal(got, view_variance.view_variance_plain(
+        *_swept(maps, proj, hyp)))

@@ -31,6 +31,7 @@ from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.ops import warp
 from estdepth_tpu_torch.ops.cuda import (
     epipolar_attention, library, plane_mix, plane_warp, two_pass,
+    view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -154,9 +155,9 @@ def test_joint_artifact_matches_the_jax_runner(joint):
 
 def _op_cases():
     """(op, args, plain function) at the shapes of
-    tests/test_torch_port_ops.py (12x16 maps, D = 8, C = 4) and of the
+    tests/test_torch_port_ops.py (12x16 maps, D = 8, C = 4), of the
     fusion's attention (3 neighbours, 16 channels, the K and V halves of
-    one warped volume read in place)."""
+    one warped volume read in place) and of a variance over 3 views."""
     rng = np.random.default_rng(0)
     h, w, c, d = 12, 16, 4, 8
 
@@ -192,6 +193,8 @@ def _op_cases():
         "epipolar_attention": (
             (tk, warped[..., :16], warped[..., 16:], valid),
             epipolar_attention.epipolar_attention_plain),
+        "view_variance": ((src, [vol, t(1, d, h, w, c)]),
+                          view_variance.view_variance_plain),
     }
 
 
@@ -210,8 +213,8 @@ def test_op_equals_its_plain_version_on_cpu(name):
     # the CUDA implementation allocates a new contiguous float32 tensor
     # of that shape; so does the shape function
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
-        fake = op(*(mode.from_tensor(a) if torch.is_tensor(a) else a
-                    for a in args))
+        fake = op(*torch.utils._pytree.tree_map_only(
+            torch.Tensor, mode.from_tensor, args))
     assert (fake.shape, fake.dtype) == (want.shape, torch.float32)
     assert fake.is_contiguous()
 
