@@ -38,6 +38,14 @@ writes the U-Net's NCDHW. Float32 with TF32 off only
 Counters (utils/trace.py): `mvs.targets` (reference depth maps),
 `mvs.feature_views` (views through the feature net) and `mvs.hypotheses`
 (D_k h_k w_k summed over the stages, per reference view).
+
+`MVSCascade` is the cascade that CasMVSNet and TransMVSNet
+(models/transmvsnet.py) share: the refusals, the counters, the feature
+net's span, the per-stage loop with its projections, hypotheses and
+spans, and the U-Net call under cuDNN's measured plans. A model supplies
+`feature`, `cost_regularization` and three steps: `_refine` (what follows
+the feature net; nothing here), `_cost_volume` (the variance here) and
+`_readout` (soft-argmin and the pooled confidence here).
 """
 
 from __future__ import annotations
@@ -143,17 +151,16 @@ def photometric_confidence(probs: torch.Tensor):
     return window[:, 0] + window[:, 1] + window[:, 2] + window[:, 3], idx
 
 
-class CascadeMVSNet(nn.Module):
-    def __init__(self, cfg: CascadeConfig = CascadeConfig(), seed: int = 0):
-        """Random weights from `seed` by the port's init scheme
-        (models/layers.init_weights); load a state_dict for real ones."""
+class MVSCascade(nn.Module):
+    """The three-stage cascade of per-pixel plane sweeps. Subclasses set
+    `feature` (FPN maps at 1/4, 1/2 and full resolution), one
+    `cost_regularization[k]` a stage (a volume [B, C, D, h, w] -> logits
+    [B, 1, D, h, w]) and the steps `_refine`, `_cost_volume` and
+    `_readout`; `cfg` is a `CascadeConfig`."""
+
+    def __init__(self, cfg: CascadeConfig):
         super().__init__()
         self.cfg = cfg
-        self.feature = FeatureNet()
-        self.cost_regularization = nn.ModuleList(
-            [CostRegNet(4 * BASE_CHANNELS >> k) for k in range(3)])
-        init_weights(self, torch.Generator().manual_seed(seed))
-        self.eval()
 
     def _hypotheses(self, stage: int, prev, batch: int, height: int,
                     width: int, device) -> torch.Tensor:
@@ -181,6 +188,83 @@ class CascadeMVSNet(nn.Module):
                                 mode="trilinear", align_corners=False)[:, 0]
         return hyp
 
+    def _refine(self, feats, batch: int, views: int):
+        """The three feature maps [B V, C, h, w] after the feature net."""
+        return feats
+
+    def _cost_volume(self, stage: int, maps: torch.Tensor,
+                     proj: torch.Tensor, hyp: torch.Tensor, carry):
+        """(volume [B, C, D, h, w], carry) of the stage from maps
+        [B, V, h, w, C] channels-last, proj [B, V, 4, 4] at the maps'
+        scale and hyp [B, D, h, w]; `carry` is what the previous stage's
+        call returned (None at stage 1)."""
+        raise NotImplementedError
+
+    def _readout(self, logits: torch.Tensor, hyp: torch.Tensor, last: bool,
+                 out: dict) -> torch.Tensor:
+        """The stage's depth [B, h, w] from its logits [B, D, h, w]; puts
+        "confidence" and "index" into `out` at the last stage."""
+        raise NotImplementedError
+
+    def forward(self, imgs: torch.Tensor, cam_poses: torch.Tensor,
+                cam_intr: torch.Tensor) -> dict:
+        """imgs [B, V, H, W, 3] in 0..255 (uint8 or float), view 0 the
+        reference; cam_poses [B, V, 4, 4] cam-to-world; cam_intr [B, 3, 3]
+        at full resolution. Returns "depth" and "confidence" [B, H, W] of
+        the final stage, "index" [B, H, W] (int64) its plane index, and
+        "stage_depths", each stage's depth [B, H / s, W / s]."""
+        b, v, height, width, _ = imgs.shape
+        if v < 2:
+            raise ValueError("need a reference view and a source view")
+        if height % SIZE_MULTIPLE or width % SIZE_MULTIPLE:
+            raise ValueError(f"{height}x{width}: {type(self).__name__} "
+                             f"takes sides that divide by {SIZE_MULTIPLE}")
+        trace.count("mvs.targets", b)
+        trace.count("mvs.feature_views", b * v)
+        with trace.span("mvs_features"):
+            x = (imgs.reshape(b * v, height, width, 3).float() / 255.0)
+            feats = self.feature(x.permute(0, 3, 1, 2).contiguous())
+        feats = self._refine(feats, b, v)
+        poses = cam_poses.reshape(b * v, 4, 4)
+        depth, carry, out = None, None, {"stage_depths": []}
+        for k, f in enumerate(feats):
+            _, c, h, w = f.shape
+            trace.count("mvs.hypotheses", b * self.cfg.stage_planes[k] * h * w)
+            with trace.span("mvs_cost_volume"):
+                k_s = scale_intrinsics(cam_intr, 1.0 / STAGE_SCALES[k])
+                proj = camera_projection(
+                    k_s[:, None].expand(b, v, 3, 3).reshape(b * v, 3, 3),
+                    poses).reshape(b, v, 4, 4)
+                hyp = self._hypotheses(k, depth, b, height, width,
+                                       imgs.device)
+                maps = f.permute(0, 2, 3, 1).contiguous().view(
+                    b, v, h, w, c)
+                volume, carry = self._cost_volume(k, maps, proj, hyp, carry)
+            # on an H100 in float32 the heuristic's plans take 43, 98 and
+            # 90 ms for the DTU setting's three CasMVSNet U-Nets, the
+            # measured ones 27, 59 and 52; the feature net's are the same
+            # either way
+            with trace.span("mvs_regularization"), measured_conv_plans():
+                logits = self.cost_regularization[k](volume)[:, 0]
+            del volume
+            with trace.span("mvs_regression"):
+                depth = self._readout(logits, hyp, k == len(feats) - 1, out)
+            out["stage_depths"].append(depth)
+        out["depth"] = depth
+        return out
+
+
+class CascadeMVSNet(MVSCascade):
+    def __init__(self, cfg: CascadeConfig = CascadeConfig(), seed: int = 0):
+        """Random weights from `seed` by the port's init scheme
+        (models/layers.init_weights); load a state_dict for real ones."""
+        super().__init__(cfg)
+        self.feature = FeatureNet()
+        self.cost_regularization = nn.ModuleList(
+            [CostRegNet(4 * BASE_CHANNELS >> k) for k in range(3)])
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.eval()
+
     @staticmethod
     def _variance(maps: torch.Tensor, proj: torch.Tensor,
                   hyp: torch.Tensor) -> torch.Tensor:
@@ -194,50 +278,13 @@ class CascadeMVSNet(nn.Module):
                   for i in range(1, maps.shape[1])]
         return view_variance(maps[:, 0].contiguous(), warped)
 
-    def forward(self, imgs: torch.Tensor, cam_poses: torch.Tensor,
-                cam_intr: torch.Tensor) -> dict:
-        """imgs [B, V, H, W, 3] in 0..255 (uint8 or float), view 0 the
-        reference; cam_poses [B, V, 4, 4] cam-to-world; cam_intr [B, 3, 3]
-        at full resolution. Returns "depth" and "confidence" [B, H, W] of
-        the final stage, "index" [B, H, W] (int64) its idx, and
-        "stage_depths", each stage's depth [B, H / s, W / s]."""
-        b, v, height, width, _ = imgs.shape
-        if v < 2:
-            raise ValueError("need a reference view and a source view")
-        if height % SIZE_MULTIPLE or width % SIZE_MULTIPLE:
-            raise ValueError(f"{height}x{width}: CasMVSNet takes sides that "
-                             f"divide by {SIZE_MULTIPLE}")
-        trace.count("mvs.targets", b)
-        trace.count("mvs.feature_views", b * v)
-        with trace.span("mvs_features"):
-            x = (imgs.reshape(b * v, height, width, 3).float() / 255.0)
-            feats = self.feature(x.permute(0, 3, 1, 2).contiguous())
-        poses = cam_poses.reshape(b * v, 4, 4)
-        depth, stage_depths = None, []
-        for k, f in enumerate(feats):
-            _, c, h, w = f.shape
-            trace.count("mvs.hypotheses", b * self.cfg.stage_planes[k] * h * w)
-            with trace.span("mvs_cost_volume"):
-                k_s = scale_intrinsics(cam_intr, 1.0 / STAGE_SCALES[k])
-                proj = camera_projection(
-                    k_s[:, None].expand(b, v, 3, 3).reshape(b * v, 3, 3),
-                    poses).reshape(b, v, 4, 4)
-                hyp = self._hypotheses(k, depth, b, height, width,
-                                       imgs.device)
-                maps = f.permute(0, 2, 3, 1).contiguous().view(
-                    b, v, h, w, c)
-                var = self._variance(maps, proj, hyp)
-            # on an H100 in float32 the heuristic's plans take 43, 98 and
-            # 90 ms for the DTU setting's three U-Nets, the measured ones
-            # 27, 59 and 52; the feature net's are the same either way
-            with trace.span("mvs_regularization"), measured_conv_plans():
-                logits = self.cost_regularization[k](var)[:, 0]
-            del var
-            with trace.span("mvs_regression"):
-                probs = torch.softmax(logits, 1)
-                depth = expected_depth(probs, hyp)
-                if k == len(feats) - 1:
-                    confidence, index = photometric_confidence(probs)
-            stage_depths.append(depth)
-        return {"depth": depth, "confidence": confidence, "index": index,
-                "stage_depths": stage_depths}
+    def _cost_volume(self, stage, maps, proj, hyp, carry):
+        return self._variance(maps, proj, hyp), carry
+
+    def _readout(self, logits, hyp, last, out):
+        """Soft-argmin over the hypotheses; the photometric confidence and
+        its idx at the last stage."""
+        probs = torch.softmax(logits, 1)
+        if last:
+            out["confidence"], out["index"] = photometric_confidence(probs)
+        return expected_depth(probs, hyp)

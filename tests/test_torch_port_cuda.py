@@ -24,7 +24,8 @@ Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses, and
 the port's own variance kernel (CasMVSNet's cost volume, no TPU
 counterpart) at the three DTU stages' shapes on real sweeps, at odd
 widths and 1 to 16 source views, and inside the model's stage-2 cost
-volume.
+volume. TransMVSNet on the card follows its plain reference on the CPU at
+the small size.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 
@@ -1323,3 +1324,56 @@ def test_casmvsnet_cost_volume_on_the_card_is_its_plain_version(dev):
     assert view_variance.KERNEL.launches == variances + 1
     assert torch.equal(got, view_variance.view_variance_plain(
         *_swept(maps, proj, hyp)))
+
+
+def test_transmvsnet_on_the_card_follows_the_cpu_reference(dev):
+    """TransMVSNet through MVSRunner on the card (kernel 1 once a source
+    view a stage, cuDNN's measured plans for the U-Nets) at the small size
+    (3 views at 64x96, 8/8/8 planes) against the plain reference on the
+    CPU, its stages 2 and 3 started from the card's previous-stage depth.
+    Where both argmaxes agree the depth is the same hypothesis up to the
+    rounding of the bilinear resize of the previous depth on either device
+    (1e-6 m); the card's convolutions and reductions sum in another order
+    than the CPU's, which moves a probability by ~1e-5, so at most 1% of
+    the 8064 pixels' argmaxes may flip and the confidence is held to 1e-4
+    where they agree."""
+    from estdepth_tpu_torch.config import CascadeConfig
+    from estdepth_tpu_torch.eval.mvs import MVSRunner
+    from estdepth_tpu_torch.models.transmvsnet import TransMVSNet
+    from portbench.harness.scenes import Path, make_scenes
+    from portbench.reference.transmvsnet import TransMVSNet as Reference
+
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = 64, 96
+    cfg = CascadeConfig(stage_planes=(8, 8, 8))
+    model = TransMVSNet(cfg, seed=3)
+    ref = Reference(cfg.stage_planes, cfg.interval_ratios, cfg.ndepths,
+                    cfg.depth_min, cfg.depth_interval)
+    ref.load_state_dict(model.state_dict(), strict=True)
+    path = Path(height=h, width=w, frames=4, step_x=0.03, step_z=-0.0045,
+                yaw_per_frame=0.002, plane_offset=(0.6, 0.75),
+                focal=2892.33 * w / 1600)
+    scene = make_scenes(path, 1, 5, torch.device("cpu"))[0]
+    poses = scene.poses[[2, 1, 3]].copy()
+    poses[1:, 1, 3] += np.float32(0.004)
+    views = (torch.from_numpy(scene.frames[[2, 1, 3]])[None],
+             torch.from_numpy(poses)[None],
+             torch.from_numpy(scene.intr)[None])
+    sweeps = plane_warp.KERNEL.launches
+    got = MVSRunner(model, return_all=True, device=dev).run_view(*views)
+    assert plane_warp.KERNEL.launches == sweeps + 3 * 2
+    got = {k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+           for k, v in got.items()}
+    with torch.inference_mode():
+        want = ref.eval()(*views, prev_depths=got["stage_depths"][:2])
+    flips = 0
+    for k in range(3):
+        same = got["stage_indices"][k] == want["stage_indices"][k]
+        flips += int((~same).sum())
+        torch.testing.assert_close(got["stage_depths"][k][same],
+                                   want["stage_depths"][k][same],
+                                   atol=1e-6, rtol=0)
+    assert flips <= 0.01 * (16 * 24 + 32 * 48 + h * w), flips
+    same = got["index"] == want["index"]
+    torch.testing.assert_close(got["confidence"][same],
+                               want["confidence"][same], atol=1e-4, rtol=0)
