@@ -17,8 +17,11 @@ Prints one line per kernel (`"phase": "kernel"`) and per gradient, then
 of TPU kernels. CasMVSNet's sweep (kernel 1 at per-pixel hypotheses) is
 held only by the `cuda` tests, at one stage's shape. The port's own
 variance kernel (CasMVSNet's cost volume, which replaces no TPU kernel)
-is held bit for bit and timed at the three DTU stages' shapes, its last
-row, with every instance's registers and spills.
+is held bit for bit and timed at the three DTU stages' shapes, with
+every instance's registers and spills; so is the port's own correlation
+kernel (TransMVSNet's cost volume, one swept source view a call), its
+last row, held to 4 C 2^-23 mean_c |warped_c ref_c| of its plain version
+at every voxel, since it sums the channels in another order.
 
 Then it drives, once each at the flagship width (ResNet-50), the routes
 that no benchmark cell runs: the Joint chain with the plane-mix warp and
@@ -81,7 +84,7 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp,
-    plane_warp_exact_z, two_pass, view_variance,
+    plane_warp_exact_z, two_pass, view_correlation, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools import eval_joint, kernel_report
@@ -729,6 +732,7 @@ def phase_kernels() -> list[dict]:
     row["bf16"]["library_err_in_ulps_of_scale"] = lib16_ulps
     rows.append(row)
     rows.append(_view_variance_row(dev))
+    rows.append(_view_correlation_row(dev))
     for r in rows:
         log("kernel", **r)
     return rows
@@ -765,6 +769,51 @@ def _view_variance_row(dev) -> dict:
               for r in _kernel_reports(["view_variance"])["view_variance"]]
     return {"name": "view_variance", "route": "cuda",
             "source": "estdepth_tpu_torch/csrc/view_variance.cu",
+            "replaces": None, "stages": stages, "report": report,
+            "ms": sum(m["ms"] for m in stages),
+            "bound_ms": sum(m["bound_ms"] for m in stages)}
+
+
+def _view_correlation_row(dev) -> dict:
+    """The port's own correlation kernel (TransMVSNet's cost volume, no
+    TPU counterpart) at each DTU stage's shape, one swept source view a
+    call, on random features and volumes: within 4 C 2^-23 mean_c
+    |warped_c ref_c| of its plain version at every voxel (the largest
+    ratio of gap to bound), timed against its bytes (each input read
+    once, the [B, D, H, W] output written once; no operation counted) and
+    beside the plain version; with every instance's registers, spills
+    and shared memory."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = []
+    for h, w, c, d in MVS_STAGES:
+        ref = torch.randn(1, h, w, c, device=dev, generator=gen)
+        warped = torch.randn(1, d, h, w, c, device=dev, generator=gen)
+        got = view_correlation.view_correlation(ref, warped)
+        gap = (got - view_correlation.view_correlation_plain(ref, warped)
+               ).abs_()
+        bound = (warped * ref[:, None]).abs_().mean(-1).mul_(
+            4 * c * 2.0 ** -23)
+        ratio = float((gap / bound.clamp_min_(
+            torch.finfo(torch.float32).tiny)).max())
+        if not ratio <= 1:
+            raise AssertionError(f"view_correlation: {ratio} of its bound "
+                                 f"from its plain version at {h}x{w}x{c}")
+        del gap, bound
+        m = _measure(
+            "view_correlation",
+            lambda: view_correlation.view_correlation(ref, warped),
+            lambda: view_correlation.view_correlation_plain(ref, warped),
+            nbytes(ref, warped, got), 0.0)
+        stages.append({"h": h, "w": w, "c": c, "d": d,
+                       "max_gap_over_bound": ratio, **m})
+        del ref, warped, got
+        torch.cuda.empty_cache()
+    report = [{k: r.get(k, 0) for k in ("kernel", "registers", "spill_bytes",
+                                         "smem_bytes")}
+              for r in _kernel_reports(["view_correlation"])[
+                  "view_correlation"]]
+    return {"name": "view_correlation", "route": "cuda",
+            "source": "estdepth_tpu_torch/csrc/view_correlation.cu",
             "replaces": None, "stages": stages, "report": report,
             "ms": sum(m["ms"] for m in stages),
             "bound_ms": sum(m["bound_ms"] for m in stages)}

@@ -28,7 +28,9 @@ the network predicts the reference view's depth in three stages at 1/4,
   2 and 3: stage k+1 = smooth_k(up(dim_reduction_k(stage k)) + stage k+1);
 - stage k's per-pixel hypotheses and kernel 1's sweep are CasMVSNet's
   (`MVSCascade`); each swept source volume is correlated with the
-  reference, the mean over channels of the product, [B, D, h, w]; at
+  reference, the mean over channels of the product, [B, D, h, w] (one
+  op, `estdepth::view_correlation`: a hand-written kernel on the card,
+  the plain product and mean on the CPU); at
   stage 1 `PixelwiseNet` gives each source a weight a pixel (the max over
   D of the sigmoid of a 1x1x1 3D net), reused at stages 2 and 3 upsampled
   x2 (nearest); the volume is sum_i w_i c_i / (1e-5 + sum_i w_i), in view
@@ -64,6 +66,7 @@ from estdepth_tpu_torch.models.casmvsnet import (
 from estdepth_tpu_torch.models.layers import (
     Conv2d, Conv3d, Linear, conv_bn, init_weights, upsample_nearest,
 )
+from estdepth_tpu_torch.ops.cuda.view_correlation import view_correlation
 from estdepth_tpu_torch.ops.warp import plane_sweep_warp
 from estdepth_tpu_torch.utils import trace
 
@@ -314,14 +317,14 @@ class TransMVSNet(MVSCascade):
         """The view-weighted correlation [B, 1, D, h, w] and the view
         weights [B, V - 1, h, w]: PixelwiseNet's at stage 1, the previous
         stage's upsampled x2 (nearest) after."""
-        ref = maps[:, 0, None]
+        ref = maps[:, 0].contiguous()
         if weights is not None:
             weights = upsample_nearest(weights)
         made, num, den = [], None, None
         for i in range(1, maps.shape[1]):
             warped = plane_sweep_warp(maps[:, i].contiguous(), proj[:, i],
                                       proj[:, 0], hyp)
-            corr = (warped * ref).mean(-1)  # [B, D, h, w]
+            corr = view_correlation(ref, warped)  # [B, D, h, w]
             del warped
             if weights is None:
                 w_i = self.pixel_wise_net(corr[:, None])

@@ -1,4 +1,4 @@
-"""The six kernels as PyTorch operators: `estdepth::*` custom ops.
+"""The seven kernels as PyTorch operators: `estdepth::*` custom ops.
 
 On a TPU a Pallas call lowers into the StableHLO of the program that runs
 it. Here a kernel is a ctypes call on raw pointers, which `torch.export`
@@ -23,16 +23,18 @@ on the card in place of the kernel. Each kernel is therefore one
 | estdepth::plane_mix_resample   | 4      | ops/cuda/plane_mix.py      |
 | estdepth::epipolar_attention   | 5      | ops/cuda/epipolar_attention.py |
 | estdepth::view_variance        | none   | ops/cuda/view_variance.py  |
+| estdepth::view_correlation     | none   | ops/cuda/view_correlation.py |
 
-Kernels 1-5 replace the JAX package's TPU kernels; `view_variance`
-replaces none (CasMVSNet's variance over the views, which the JAX
-package does not have).
+Kernels 1-5 replace the JAX package's TPU kernels; `view_variance` and
+`view_correlation` replace none (CasMVSNet's variance over the views and
+TransMVSNet's correlation of a swept view with the reference, which the
+JAX package does not have).
 
 Each module defines its op with `define` when it is imported;
-`load_ops()` imports all six, which a loaded program needs before it is
+`load_ops()` imports all seven, which a loaded program needs before it is
 deserialized. The ops carry no autograd formula: kernels 1-4 get theirs
-from `build.sample_with_plain_grad`, and kernel 5 and `view_variance` are
-forward-only.
+from `build.sample_with_plain_grad`, and kernel 5, `view_variance` and
+`view_correlation` are forward-only.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ MODULES = {
     "plane_mix_resample": "plane_mix",
     "epipolar_attention": "epipolar_attention",
     "view_variance": "view_variance",
+    "view_correlation": "view_correlation",
 }
 
 
@@ -72,7 +75,7 @@ def check_device(name: str, t: torch.Tensor) -> None:
 
 
 def load_ops() -> dict:
-    """Define all six ops (importing their modules); returns
+    """Define all seven ops (importing their modules); returns
     {name: op}."""
     return {name: getattr(importlib.import_module(
         f"estdepth_tpu_torch.ops.cuda.{module}"), "OP")

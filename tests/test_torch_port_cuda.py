@@ -24,8 +24,13 @@ Kernel 1 is also held so at CasMVSNet's per-pixel depth hypotheses, and
 the port's own variance kernel (CasMVSNet's cost volume, no TPU
 counterpart) at the three DTU stages' shapes on real sweeps, at odd
 widths and 1 to 16 source views, and inside the model's stage-2 cost
-volume. TransMVSNet on the card follows its plain reference on the CPU at
-the small size.
+volume. The correlation kernel (TransMVSNet's cost volume, no TPU
+counterpart) sums its channels in another order than ATen's, so it is
+held to 4 C 2^-23 mean_c |warped_c ref_c| of its plain version at every
+voxel, at the three DTU stages' shapes on real sweeps and at odd widths
+and channel counts. TransMVSNet on the card follows its plain reference
+on the CPU at the small size, and correlates each source view once a
+stage.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 
@@ -57,7 +62,7 @@ import torch
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z, two_pass,
-    view_variance,
+    view_correlation, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 
@@ -1324,6 +1329,120 @@ def test_casmvsnet_cost_volume_on_the_card_is_its_plain_version(dev):
     assert view_variance.KERNEL.launches == variances + 1
     assert torch.equal(got, view_variance.view_variance_plain(
         *_swept(maps, proj, hyp)))
+
+
+def _correlation_launch(ref, warped):
+    before = view_correlation.KERNEL.launches
+    got = view_correlation.view_correlation(ref, warped)
+    assert view_correlation.KERNEL.launches == before + 1
+    assert got.shape == warped.shape[:-1] and got.is_contiguous()
+    return got
+
+
+def _correlation_gap(got, ref, warped) -> float:
+    """The largest |kernel - plain| over its bound 4 C 2^-23 mean_c
+    |warped_c ref_c| at any voxel (0 where both are exactly 0); asserts
+    that none exceeds 1."""
+    want = view_correlation.view_correlation_plain(ref, warped)
+    bound = (warped * ref[:, None]).abs_().mean(-1).mul_(
+        4 * ref.shape[-1] * 2.0 ** -23)
+    gap = (got - want).abs_()
+    assert bool((gap <= bound).all()), float((gap - bound).max())
+    return float((gap / bound.clamp_min(torch.finfo(torch.float32).tiny))
+                 .max())
+
+
+@pytest.mark.parametrize("stage", range(len(MVS_STAGES)))
+def test_view_correlation_kernel_at_the_dtu_stages(dev, stage):
+    """The correlation kernel at each stage's shape (its C = 32, 16, 8
+    instances) on 4 real per-pixel sweeps, zeros outside the source
+    view included: within the per-voxel bound of its plain version on
+    the same card tensors, one launch a call."""
+    h, w, c, d = MVS_STAGES[stage]
+    ref, warped = _swept(*_mvs_views(dev, h, w, c, d, seed=stage))
+    for vol in warped:
+        assert (vol == 0).any() and (vol != 0).any()
+        got = _correlation_launch(ref, vol)
+        assert _correlation_gap(got, ref, vol) <= 1
+        assert (got != 0).any()
+        del got
+
+
+@pytest.mark.parametrize("b,c,w,d", [
+    (2, 8, 33, 7), (1, 16, 31, 13), (2, 32, 17, 9), (1, 32, 45, 3),
+    (2, 4, 31, 7), (1, 12, 33, 9), (2, 64, 21, 5), (1, 8, 1, 17)])
+def test_view_correlation_kernel_at_odd_widths_and_channels(dev, b, c, w,
+                                                            d):
+    """Odd widths (a warp's ragged last pixels), plane counts that end a
+    block's chunk of 8 or a step of its loads early, batch 2, and
+    channel counts of the generic instance (C = 4, 12, 64): within the
+    per-voxel bound of the plain version."""
+    gen = torch.Generator().manual_seed(c * w + d)
+    ref = torch.randn(b, 24, w, c, generator=gen).to(dev)
+    warped = torch.randn(b, d, 24, w, c, generator=gen).to(dev)
+    got = _correlation_launch(ref, warped)
+    assert _correlation_gap(got, ref, warped) <= 1
+
+
+def test_view_correlation_kernel_refuses_what_it_cannot_take(dev):
+    """A float64 or bfloat16 input, a strided volume, a volume of another
+    shape, C % 4 != 0 or a reference on another device raise before any
+    launch."""
+    ref, warped = _swept(*_mvs_views(dev, 24, 32, 8, 5, 1))
+    vol = warped[0]
+    before = view_correlation.KERNEL.launches
+    for error, args in [
+            (TypeError, (ref.double(), vol.double())),
+            (TypeError, (ref, vol.bfloat16())),
+            (ValueError, (ref, vol.transpose(2, 3).contiguous()
+                          .transpose(2, 3))),
+            (ValueError, (ref, vol[:, :, 1:].contiguous())),
+            (ValueError, (ref[..., :6].contiguous(),
+                          vol[..., :6].contiguous())),
+            (ValueError, (ref.cpu(), vol))]:
+        with pytest.raises(error):
+            view_correlation.view_correlation(*args)
+    assert view_correlation.KERNEL.launches == before
+
+
+def test_transmvsnet_correlates_each_source_view_once_a_stage(dev):
+    """A 5-view TransMVSNet request through MVSRunner on the card at the
+    small size (64x96, 8/8/8 planes): each stage's cost volume launches
+    kernel 1 and the correlation kernel once a source view, 4 a stage,
+    and the depth and confidence are finite, the confidence a
+    probability."""
+    from estdepth_tpu_torch.config import CascadeConfig
+    from estdepth_tpu_torch.eval.mvs import MVSRunner
+    from estdepth_tpu_torch.models.transmvsnet import TransMVSNet
+    from portbench.harness.scenes import Path, make_scenes
+
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = 64, 96
+    model = TransMVSNet(CascadeConfig(stage_planes=(8, 8, 8)), seed=3)
+    path = Path(height=h, width=w, frames=5, step_x=0.03, step_z=-0.0045,
+                yaw_per_frame=0.002, plane_offset=(0.6, 0.75),
+                focal=2892.33 * w / 1600)
+    scene = make_scenes(path, 1, 5, torch.device("cpu"))[0]
+    order = [2, 1, 3, 0, 4]
+    views = (torch.from_numpy(scene.frames[order])[None],
+             torch.from_numpy(scene.poses[order])[None],
+             torch.from_numpy(scene.intr)[None])
+    stages = []
+    inner = model._cost_volume
+
+    def counted(*args):
+        sweeps = plane_warp.KERNEL.launches
+        correlations = view_correlation.KERNEL.launches
+        out = inner(*args)
+        stages.append((plane_warp.KERNEL.launches - sweeps,
+                       view_correlation.KERNEL.launches - correlations))
+        return out
+
+    model._cost_volume = counted
+    depth, confidence = MVSRunner(model, device=dev).run_view(*views)
+    assert stages == [(4, 4)] * 3
+    assert bool(torch.isfinite(depth).all()) and float(depth.min()) > 0
+    assert bool(((confidence > 0) & (confidence <= 1)).all())
 
 
 def test_transmvsnet_on_the_card_follows_the_cpu_reference(dev):

@@ -31,7 +31,7 @@ from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.ops import warp
 from estdepth_tpu_torch.ops.cuda import (
     epipolar_attention, library, plane_mix, plane_warp, two_pass,
-    view_variance,
+    view_correlation, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -157,7 +157,8 @@ def _op_cases():
     """(op, args, plain function) at the shapes of
     tests/test_torch_port_ops.py (12x16 maps, D = 8, C = 4), of the
     fusion's attention (3 neighbours, 16 channels, the K and V halves of
-    one warped volume read in place) and of a variance over 3 views."""
+    one warped volume read in place), of a variance over 3 views and of a
+    correlation of one swept view with the reference."""
     rng = np.random.default_rng(0)
     h, w, c, d = 12, 16, 4, 8
 
@@ -195,6 +196,8 @@ def _op_cases():
             epipolar_attention.epipolar_attention_plain),
         "view_variance": ((src, [vol, t(1, d, h, w, c)]),
                           view_variance.view_variance_plain),
+        "view_correlation": ((src, vol),
+                             view_correlation.view_correlation_plain),
     }
 
 

@@ -359,6 +359,7 @@ def test_spans_and_counters(models, views):
     for span in ("mvs_cost_volume", "mvs_regularization", "mvs_regression"):
         assert names.count(f"estdepth::{span}") == 3, span
     assert names.count("estdepth::plane_sweep_sample") == 3 * 2
+    assert names.count("estdepth::view_correlation") == 3 * 2
     assert names.count("estdepth::view_variance") == 0
     after = trace.counts()
     grow = {k: after.get(k, 0) - before.get(k, 0)
