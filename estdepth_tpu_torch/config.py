@@ -100,6 +100,55 @@ class CascadeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VGGTConfig:
+    """VGGT hyper-parameters (Wang et al., CVPR 2025, arXiv:2503.11347;
+    facebookresearch/vggt, the `facebook/VGGT-1B` model), defaults at the
+    published widths: a DINOv2 ViT-L/14 with 4 registers, 24 frame and 24
+    global blocks of width 1024 (16 heads of 64), a camera head of 4 trunk
+    blocks at width 2048 and 4 refinement iterations, and a DPT depth head
+    of 256 features on aggregator outputs 4, 11, 17 and 23. Frames are
+    resized to `img_height` x `img_width` (518 wide, a height that is a
+    multiple of the patch: 378 for 1152x1600 frames)."""
+
+    img_height: int = 378
+    img_width: int = 518
+    patch_size: int = 14
+    embed_dim: int = 1024
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_register_tokens: int = 4
+    dino_depth: int = 24  # DINOv2's blocks
+    aa_depth: int = 24  # the aggregator's frame / global block pairs
+    pos_embed_grid: int = 37  # DINOv2's learned grid, 518 / 14
+    rope_frequency: float = 100.0
+    camera_trunk_depth: int = 4
+    camera_iterations: int = 4
+    dpt_features: int = 256
+    dpt_out_channels: tuple[int, ...] = (256, 512, 1024, 1024)
+    dpt_layers: tuple[int, ...] = (4, 11, 17, 23)
+    # the aggregator's autocast dtype ("float32": no autocast region)
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: "
+                             f"bfloat16 (autocast) or float32")
+        if self.embed_dim % (4 * self.num_heads):
+            raise ValueError(f"embed_dim {self.embed_dim} over "
+                             f"{self.num_heads} heads: 2D RoPE needs a "
+                             f"head width that is a multiple of 4")
+        if (self.img_height % self.patch_size
+                or self.img_width % self.patch_size):
+            raise ValueError(f"{self.img_height}x{self.img_width}: a "
+                             f"multiple of the patch {self.patch_size}")
+        if len(self.dpt_layers) != 4 or len(self.dpt_out_channels) != 4:
+            raise ValueError("the DPT head reads four layers")
+        if not all(0 <= i < self.aa_depth for i in self.dpt_layers):
+            raise ValueError(f"dpt_layers {self.dpt_layers}: outputs of "
+                             f"{self.aa_depth} aggregator iterations")
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Input pipeline settings (reference data/scannet.py,
     general_eval*.py)."""

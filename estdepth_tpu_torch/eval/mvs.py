@@ -1,9 +1,13 @@
-"""Multi-view stereo inference of the cascade networks, CasMVSNet
-(models/casmvsnet.py) and TransMVSNet (models/transmvsnet.py): one
-reference depth map and its confidence per request, as the published
-test scripts compute them for each view of a scan before fusing them
-into a point cloud (cascade-stereo CasMVSNet/test.py, TransMVSNet's
-test.py).
+"""Multi-view inference of the cascade networks, CasMVSNet
+(models/casmvsnet.py) and TransMVSNet (models/transmvsnet.py), and of the
+feed-forward VGGT (models/vggt.py), through one call. A cascade request is
+a reference view and its sources: one reference depth map and its
+confidence, as the published test scripts compute them for each view of
+a scan before fusing them into a point cloud (cascade-stereo
+CasMVSNet/test.py, TransMVSNet's test.py). A VGGT request is every frame
+of a scan: a depth map and a confidence for each frame, and each frame's
+camera; VGGT takes no cameras, so the poses and intrinsics are accepted
+and not read, and it resizes the frames itself, on the device.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import torch
 
 from estdepth_tpu_torch.config import resolve_device
 from estdepth_tpu_torch.models.casmvsnet import MVSCascade
+from estdepth_tpu_torch.models.vggt import VGGT
 from estdepth_tpu_torch.utils import trace
 
 
@@ -19,10 +24,11 @@ class MVSRunner:
     """Runs the model on one request of views at a time. The model is
     moved to `device` (None: the CUDA device, raising when there is none)
     and kept in eval mode. `return_all` returns the model's whole output
-    in place of the two maps: also the final stage's plane index that
-    the confidence is taken at, and each stage's depth."""
+    in place of the two maps: for a cascade also the final stage's plane
+    index that the confidence is taken at, and each stage's depth; for
+    VGGT also the logits and the pose encodings."""
 
-    def __init__(self, model: MVSCascade, return_all: bool = False,
+    def __init__(self, model: MVSCascade | VGGT, return_all: bool = False,
                  device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -31,12 +37,15 @@ class MVSRunner:
     @trace.spanned("step")
     @torch.inference_mode()
     def run_view(self, imgs, cam_poses, intr):
-        """imgs [B, V, H, W, 3] uint8 (or float in 0..255), view 0 the
-        reference and views 1.. its sources; cam_poses [B, V, 4, 4]
-        cam-to-world; intr [B, 3, 3] at full resolution; numpy or tensors.
-        Returns (depth, confidence) [B, H, W] float32 on the device, or
-        with `return_all` the model's output dict (models/casmvsnet.py:
-        MVSCascade.forward)."""
+        """imgs [B, V, H, W, 3] uint8 (or float in 0..255): for a cascade
+        view 0 the reference and views 1.. its sources, for VGGT every
+        frame of the scan, view 0 first; cam_poses [B, V, 4, 4]
+        cam-to-world; intr [B, 3, 3] at full resolution (VGGT reads
+        neither); numpy or tensors. Returns (depth, confidence) float32 on
+        the device, [B, H, W] of the reference view for a cascade,
+        [B, V, h, w] of every frame at VGGT's resized size; with
+        `return_all` the model's output dict (models/casmvsnet.py:
+        MVSCascade.forward, models/vggt.py: VGGT.forward)."""
         dev = self.device
         imgs = torch.as_tensor(imgs).to(dev)
         cam_poses = torch.as_tensor(cam_poses).float().to(dev)

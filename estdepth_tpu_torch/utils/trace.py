@@ -17,7 +17,10 @@ sampled volume, run on autograd's thread) and CasMVSNet's
 (models/casmvsnet.py): `mvs_features` (the feature net), and one a stage
 of `mvs_cost_volume` (hypotheses, sweeps and variance),
 `mvs_regularization` (the 3D U-Net) and `mvs_regression` (softmax,
-depth; the confidence in the last). A span's name never equals a
+depth; the confidence in the last); VGGT's (models/vggt.py):
+`vggt_patch_embed` (DINOv2 on every frame), `vggt_frame` and
+`vggt_global` (each frame and global block), `vggt_camera` (the camera
+head) and `vggt_depth_head` (the DPT head). A span's name never equals a
 custom op's (`estdepth::plane_sweep_sample` and the others), which the
 profiler records by itself.
 
@@ -32,6 +35,8 @@ CPU it counts the keys all the same),
 `model.targets` (target depth maps a forward computes), `mvs.targets`,
 `mvs.feature_views` and `mvs.hypotheses` (CasMVSNet's reference depth
 maps, views through its feature net and D h w summed over its stages),
+`vggt.frames`, `vggt.scans` and `vggt.global_tokens` (VGGT's depth maps,
+scans, and the tokens each global block attends over, S P once a scan),
 `launches.<stem>`
 and `launches_bf16.<stem>` (a CUDA kernel's launches, both instances and
 the bfloat16 one; ops/cuda/build.Kernel), `layers.bn_folded` (eval-mode,

@@ -30,7 +30,10 @@ held to 4 C 2^-23 mean_c |warped_c ref_c| of its plain version at every
 voxel, at the three DTU stages' shapes on real sweeps and at odd widths
 and channel counts. TransMVSNet on the card follows its plain reference
 on the CPU at the small size, and correlates each source view once a
-stage.
+stage. VGGT at the published widths with 4 + 4 blocks, under bf16
+autocast on the card, lies closer to its float32 reference than the
+reference cast wholly to bf16 does, and its attention op runs a fused
+SDPA kernel.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 
@@ -1496,3 +1499,91 @@ def test_transmvsnet_on_the_card_follows_the_cpu_reference(dev):
     same = got["index"] == want["index"]
     torch.testing.assert_close(got["confidence"][same],
                                want["confidence"][same], atol=1e-4, rtol=0)
+
+
+def _vggt_middle(dev, compute_dtype="bfloat16"):
+    """VGGT at the published widths with 4 DINOv2 blocks, 4 aggregator
+    iterations and the DPT head on outputs 0-3, its port and its
+    reference on the card with one state from the benchmark's family."""
+    import dataclasses
+
+    from estdepth_tpu_torch.config import VGGTConfig
+    from portbench.harness import models
+
+    cfg = dataclasses.asdict(VGGTConfig(
+        dino_depth=4, aa_depth=4, dpt_layers=(0, 1, 2, 3),
+        compute_dtype=compute_dtype))
+    config = {"family": "vggt", "model": {
+        k: list(v) if isinstance(v, tuple) else v for k, v in cfg.items()}}
+    state = models.weights(config, 7, dev)
+    return (models.port(config, state, dev),
+            models.reference(config, state, dev))
+
+
+def test_vggt_bf16_autocast_follows_the_float32_reference(dev):
+    """VGGT at a middle size (published widths, 4 + 4 blocks, 8 frames of
+    1152x1600 resized to 378x518: global attention over 8,032 tokens)
+    through MVSRunner on the card under bf16 autocast, against the plain
+    float32 reference (TF32 off) and the reference cast wholly to bf16:
+    every gap of the program's logits and poses, largest and median, lies
+    below the bf16 control's, and the depth is finite and positive. No
+    fixed tolerance: bf16 GEMMs move a logit by ~1e-2 at this depth."""
+    from estdepth_tpu_torch.eval.mvs import MVSRunner
+    from portbench.harness.scenes import Path, make_scenes
+
+    torch.backends.cudnn.allow_tf32 = False
+    port, ref = _vggt_middle(dev)
+    path = Path(height=1152, width=1600, frames=8, step_x=0.03,
+                step_z=-0.0045, yaw_per_frame=0.002,
+                plane_offset=(0.6, 0.75), focal=2892.33)
+    scene = make_scenes(path, 1, 5, dev)[0]
+    views = (scene.frames[None], scene.poses[None], scene.intr[None])
+    got = MVSRunner(port, return_all=True, device=dev).run_view(*views)
+    assert got["depth"].shape == (1, 8, 378, 518)
+    assert bool(torch.isfinite(got["depth"]).all())
+    assert float(got["depth"].min()) > 0
+    imgs = torch.as_tensor(scene.frames[None]).to(dev)
+    with torch.inference_mode():
+        want = ref(imgs)
+        control = ref.to(torch.bfloat16)(imgs)
+    gaps = {}
+    for k in ("depth_logit", "confidence_logit", "pose_enc"):
+        g = (got[k] - want[k]).abs()
+        c = (control[k].float() - want[k]).abs()
+        gaps[k] = (float(g.max()), float(c.max()), float(g.median()),
+                   float(c.median()))
+    print("vggt middle gaps (program max, control max, program median, "
+          "control median):", gaps)
+    for k, (g, c, gm, cm) in gaps.items():
+        assert g < c and gm < cm, (k, gaps[k])
+
+
+def test_vggt_attention_runs_a_fused_sdpa_backend(dev):
+    """A global block's attention op (q, k, v [1, 16, 49196, 64] bf16, a
+    49-frame scan's) on the card: the kernel SDPA picked is a fused one
+    (flash, cuDNN or memory-efficient), not the math path's GEMMs and
+    softmax, and its output is within bf16 rounding of a float32
+    reference on the first 256 query rows. Prints the kernel's name."""
+    from estdepth_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, 16, 49196, 64, device=dev, generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    attention(q, k, v)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = attention(q, k, v)
+        torch.cuda.synchronize()
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    print("vggt attention kernels:", sorted(kernels))
+    assert any(("flash" in n.lower() or "fmha" in n.lower()
+                or "cudnn" in n.lower() or "sdpa" in n.lower()
+                or "attention" in n.lower()) for n in kernels), kernels
+    assert not any("softmax" in n.lower() for n in kernels), kernels
+    qf, kf, vf = (t[:, :, :256].float() if t is q else t.float()
+                  for t in (q, k, v))
+    want = torch.softmax(qf @ kf.transpose(-2, -1) / 8.0, -1) @ vf
+    torch.testing.assert_close(out[:, :, :256].float(), want, atol=2e-2,
+                               rtol=0)
