@@ -19,9 +19,13 @@ held only by the `cuda` tests, at one stage's shape. The port's own
 variance kernel (CasMVSNet's cost volume, which replaces no TPU kernel)
 is held bit for bit and timed at the three DTU stages' shapes, with
 every instance's registers and spills; so is the port's own correlation
-kernel (TransMVSNet's cost volume, one swept source view a call), its
-last row, held to 4 C 2^-23 mean_c |warped_c ref_c| of its plain version
-at every voxel, since it sums the channels in another order.
+kernel (TransMVSNet's cost volume, one swept source view a call), held
+to 4 C 2^-23 mean_c |warped_c ref_c| of its plain version at every
+voxel, since it sums the channels in another order. The last row is the
+port's own GroupNorm-and-activation kernel (the EST GRU's norms) at the
+GRU's two calls, held to 4 float32 ulps of the output's scale of its
+plain version (one bf16 ulp in bf16) and timed in turns with it, which
+is ATen's group norm and activation.
 
 Then it drives, once each at the flagship width (ResNet-50), the routes
 that no benchmark cell runs: the Joint chain with the plane-mix warp and
@@ -84,7 +88,8 @@ from estdepth_tpu_torch.data.synthetic import (
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
     build, epipolar_attention, plane_mix, plane_warp,
-    plane_warp_exact_z, two_pass, view_correlation, view_variance,
+    group_norm_act, plane_warp_exact_z, two_pass, view_correlation,
+    view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools import eval_joint, kernel_report
@@ -733,6 +738,7 @@ def phase_kernels() -> list[dict]:
     rows.append(row)
     rows.append(_view_variance_row(dev))
     rows.append(_view_correlation_row(dev))
+    rows.append(_group_norm_act_row(dev))
     for r in rows:
         log("kernel", **r)
     return rows
@@ -817,6 +823,75 @@ def _view_correlation_row(dev) -> dict:
             "replaces": None, "stages": stages, "report": report,
             "ms": sum(m["ms"] for m in stages),
             "bound_ms": sum(m["bound_ms"] for m in stages)}
+
+
+# the EST GRU's two GroupNorm calls at the flagship volume (16 channels,
+# D = 64, 64x80): the gates' two norms in one call, the output norm
+GRU_NORMS = [((1, 32, NDEPTHS, HEIGHT // 4, WIDTH // 4), 2, "sigmoid"),
+             ((1, 16, NDEPTHS, HEIGHT // 4, WIDTH // 4), 1, "tanh")]
+
+
+def _ulps_of_scale(got, want) -> float:
+    """max |got - want| over the spacing eps(dtype) max |want|."""
+    return ((got.float() - want.float()).abs().max().item()
+            / (torch.finfo(want.dtype).eps
+               * want.float().abs().max().item()))
+
+
+def _group_norm_act_row(dev) -> dict:
+    """The port's GroupNorm-and-activation kernel (the EST GRU's norms, no
+    TPU counterpart) at the GRU's two calls, on random volumes: within 4
+    float32 ulps of the output's scale of its plain version (one bf16 ulp
+    in bf16), the largest gaps recorded; timed in turns with the plain
+    version, which is ATen's F.group_norm and activation on the same call,
+    against its bytes (x read once, the output written once, the weight
+    and bias; no operation counted); with every instance's registers."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = []
+    for shape, groups, act in GRU_NORMS:
+        c = shape[1]
+        x = 2.0 * torch.randn(shape, device=dev, generator=gen) + 0.5
+        weight = 1.0 + 0.2 * torch.randn(c, device=dev, generator=gen)
+        bias = 0.2 * torch.randn(c, device=dev, generator=gen)
+        entry = {"shape": list(shape), "groups": groups, "act": act}
+        fns = {}
+        for key, v in (("f32", x), ("bf16", x.bfloat16())):
+            def kern(v=v):
+                return group_norm_act.group_norm_act(v, weight, bias, groups,
+                                                     1e-5, act)
+
+            def aten(v=v):
+                return group_norm_act.group_norm_act_plain(
+                    v, weight, bias, groups, 1e-5, act)
+
+            got, want = kern(), aten()
+            gap = _ulps_of_scale(got, want)
+            if not gap <= (4 if key == "f32" else 1):
+                raise AssertionError(f"group_norm_act {key} {shape}: {gap} "
+                                     f"ulps of the output's scale from "
+                                     f"its plain version")
+            entry[key] = {"max_err_in_ulps_of_scale": gap,
+                          "deterministic": torch.equal(got, kern())}
+            entry[key]["bound_ms"], entry[key]["bound_by"] = bound_ms(
+                nbytes(v, got, weight, bias), 0.0)
+            fns[key] = (kern, aten)
+            del got, want
+        times = turns_ms(*fns["f32"], *fns["bf16"])
+        for key, (k_ms, aten_ms) in (("f32", times[:2]),
+                                     ("bf16", times[2:])):
+            entry[key].update(ms=k_ms, library_ms=aten_ms,
+                              bound_share=entry[key]["bound_ms"] / k_ms)
+        calls.append(entry)
+        del x, fns
+        torch.cuda.empty_cache()
+    report = [{k: r.get(k, 0) for k in ("kernel", "registers", "spill_bytes",
+                                         "smem_bytes")}
+              for r in _kernel_reports(["group_norm_act"])["group_norm_act"]]
+    return {"name": "group_norm_act", "route": "cuda",
+            "source": "estdepth_tpu_torch/csrc/group_norm_act.cu",
+            "replaces": None, "calls": calls, "report": report,
+            "ms": sum(m["f32"]["ms"] for m in calls),
+            "bound_ms": sum(m["f32"]["bound_ms"] for m in calls)}
 
 
 def _backward_ms(make_out, leaf, ct, reps: int = 5) -> float:

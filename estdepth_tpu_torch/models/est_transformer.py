@@ -16,6 +16,14 @@ return the values' dtype. On bf16 volumes (a bf16 model) the GRU's
 convolutions and gates run in bf16 and its GroupNorms normalize in
 float32 and return bf16 (models/layers.py), as the JAX module with
 `dtype=bfloat16`.
+
+A grad-free, unsharded call on CUDA tensors runs each GroupNorm and the
+activation after it as one op `estdepth::group_norm_act`
+(ops/cuda/group_norm_act.py), whose kernel spreads each group over the
+whole card: the reset and update gates as one call over all 2C gate
+channels in 2 groups (GroupNorm(1) of each half is GroupNorm(2) of the
+whole), the output norm as another. Training, the CPU and the
+width-sharded forward run the modules as they are.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ import torch
 from torch import nn
 
 from estdepth_tpu_torch.models.layers import Conv3d, GroupNorm
+from estdepth_tpu_torch.ops import shard_context
 from estdepth_tpu_torch.ops.cuda.epipolar_attention import (
     epipolar_attention, epipolar_attention_plain,
 )
+from estdepth_tpu_torch.ops.cuda.group_norm_act import group_norm_act
 
 
 def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -77,9 +87,23 @@ class EpipolarTransformer(nn.Module):
         x = _to_ncdhw(target_value)
         h = _to_ncdhw(h)
         gates = self.gate_conv(torch.cat([x, h], 1))
-        r = torch.sigmoid(self.reset_gate_norm(gates[:, :c]))
-        u = torch.sigmoid(self.update_gate_norm(gates[:, c:]))
-        o = self.output_norm(self.output_conv(torch.cat([x, r * h], 1)))
-        y = torch.tanh(o)
+        fused = (gates.is_cuda and not torch.is_grad_enabled()
+                 and shard_context.current() is None)
+        if fused:
+            rn, un = self.reset_gate_norm, self.update_gate_norm
+            ru = group_norm_act(
+                gates.contiguous(), torch.cat([rn.weight, un.weight]),
+                torch.cat([rn.bias, un.bias]), 2, rn.eps, "sigmoid")
+            r, u = ru[:, :c], ru[:, c:]
+        else:
+            r = torch.sigmoid(self.reset_gate_norm(gates[:, :c]))
+            u = torch.sigmoid(self.update_gate_norm(gates[:, c:]))
+        o = self.output_conv(torch.cat([x, r * h], 1))
+        if fused:
+            on = self.output_norm
+            y = group_norm_act(o.contiguous(), on.weight, on.bias, 1, on.eps,
+                               "tanh")
+        else:
+            y = torch.tanh(self.output_norm(o))
         out = u * h + (1.0 - u) * y
         return out.permute(0, 2, 3, 4, 1)

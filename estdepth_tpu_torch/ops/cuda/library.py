@@ -1,4 +1,4 @@
-"""The seven kernels as PyTorch operators: `estdepth::*` custom ops.
+"""The eight kernels as PyTorch operators: `estdepth::*` custom ops.
 
 On a TPU a Pallas call lowers into the StableHLO of the program that runs
 it. Here a kernel is a ctypes call on raw pointers, which `torch.export`
@@ -24,17 +24,19 @@ on the card in place of the kernel. Each kernel is therefore one
 | estdepth::epipolar_attention   | 5      | ops/cuda/epipolar_attention.py |
 | estdepth::view_variance        | none   | ops/cuda/view_variance.py  |
 | estdepth::view_correlation     | none   | ops/cuda/view_correlation.py |
+| estdepth::group_norm_act       | none   | ops/cuda/group_norm_act.py |
 
-Kernels 1-5 replace the JAX package's TPU kernels; `view_variance` and
-`view_correlation` replace none (CasMVSNet's variance over the views and
-TransMVSNet's correlation of a swept view with the reference, which the
-JAX package does not have).
+Kernels 1-5 replace the JAX package's TPU kernels; `view_variance`,
+`view_correlation` and `group_norm_act` replace none (CasMVSNet's variance
+over the views and TransMVSNet's correlation of a swept view with the
+reference, which the JAX package does not have, and the EST GRU's
+GroupNorms and activations, which it leaves to XLA).
 
 Each module defines its op with `define` when it is imported;
-`load_ops()` imports all seven, which a loaded program needs before it is
+`load_ops()` imports all eight, which a loaded program needs before it is
 deserialized. The ops carry no autograd formula: kernels 1-4 get theirs
-from `build.sample_with_plain_grad`, and kernel 5, `view_variance` and
-`view_correlation` are forward-only.
+from `build.sample_with_plain_grad`, and kernel 5, `view_variance`,
+`view_correlation` and `group_norm_act` are forward-only.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ MODULES = {
     "epipolar_attention": "epipolar_attention",
     "view_variance": "view_variance",
     "view_correlation": "view_correlation",
+    "group_norm_act": "group_norm_act",
 }
 
 
@@ -75,7 +78,7 @@ def check_device(name: str, t: torch.Tensor) -> None:
 
 
 def load_ops() -> dict:
-    """Define all seven ops (importing their modules); returns
+    """Define all eight ops (importing their modules); returns
     {name: op}."""
     return {name: getattr(importlib.import_module(
         f"estdepth_tpu_torch.ops.cuda.{module}"), "OP")

@@ -33,8 +33,8 @@ from estdepth_tpu_torch.config import ModelConfig, resolve_device, tiny_config
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops.cuda import (
-    build, epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z,
-    two_pass, view_correlation, view_variance,
+    build, epipolar_attention, group_norm_act, plane_mix, plane_warp,
+    plane_warp_exact_z, two_pass, view_correlation, view_variance,
 )
 from estdepth_tpu_torch.tools import kernel_report
 from estdepth_tpu_torch.utils.convert import state_dict_from_jax
@@ -180,10 +180,14 @@ def test_kernels_do_not_fall_back(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="unsupported device"):
         view_correlation.view_correlation(
             meta, torch.empty(1, 2, 4, 5, 4, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_norm_act.group_norm_act(
+            meta, torch.ones(4, device="meta"), torch.zeros(4, device="meta"),
+            1, 1e-5, "tanh")
     assert set(build.sources()) == {
         "plane_sweep_warp", "frustum_warp_exact_z", "two_pass_resample",
         "frustum_warp_plane_mix", "epipolar_attention", "view_variance",
-        "view_correlation"}
+        "view_correlation", "group_norm_act"}
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("CUDA_HOME", raising=False)

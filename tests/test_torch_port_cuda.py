@@ -34,6 +34,13 @@ stage. VGGT at the published widths with 4 + 4 blocks, under bf16
 autocast on the card, lies closer to its float32 reference than the
 reference cast wholly to bf16 does, and its attention op runs a fused
 SDPA kernel.
+The port's GroupNorm-and-activation kernel (the EST GRU's norms, no TPU
+counterpart) sums in another order than ATen's group norm, so it is held
+to 4 float32 ulps of the output's scale of its plain version (bf16: one
+bf16 ulp) at the GRU's shapes, 3 targets at once and odd, misaligned
+rows, to float64 statistics within 1e-6, and to its own output on a
+second run; each grad-free GRU call of the stream and the Joint chain
+launches it twice, a training step never.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
 
@@ -58,14 +65,16 @@ Without JAX on the card's machine, run with `--noconftest`.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from estdepth_tpu_torch.ops import geometry, warp
 from estdepth_tpu_torch.ops.cuda import (
-    epipolar_attention, plane_mix, plane_warp, plane_warp_exact_z, two_pass,
-    view_correlation, view_variance,
+    epipolar_attention, group_norm_act, plane_mix, plane_warp,
+    plane_warp_exact_z, two_pass, view_correlation, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 
@@ -1587,3 +1596,158 @@ def test_vggt_attention_runs_a_fused_sdpa_backend(dev):
     want = torch.softmax(qf @ kf.transpose(-2, -1) / 8.0, -1) @ vf
     torch.testing.assert_close(out[:, :, :256].float(), want, atol=2e-2,
                                rtol=0)
+
+
+# ---- the EST GRU's GroupNorms: estdepth::group_norm_act ------------------
+
+GN_EPS = 1e-5
+# the GRU's two calls at the flagship volume (16 channels, D = 64, 64x80):
+# the gates' two norms in one call, the output norm
+GRU_NORMS = [((1, 32, 64, 64, 80), 2, "sigmoid"),
+             ((1, 16, 64, 64, 80), 1, "tanh")]
+
+
+def _norm_inputs(dev, shape, dtype=torch.float32, seed=0):
+    """x around 0.5 with spread 2, trained-looking weight and bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = (2.0 * torch.randn(shape, device=dev, generator=gen) + 0.5).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.2 * torch.randn(c, device=dev, generator=gen)
+    return x, weight, bias
+
+
+def _gap_in_ulps_of_scale(got, want) -> float:
+    """max |got - want| over the spacing eps(dtype) max |want|."""
+    scale = want.float().abs().max().item()
+    return ((got.float() - want.float()).abs().max().item()
+            / (torch.finfo(want.dtype).eps * scale))
+
+
+def _norm_launch(x, weight, bias, groups, act):
+    """One call through the kernel, counted: the op's two passes are one
+    launch of `build.Kernel`."""
+    kernel = group_norm_act.KERNEL
+    before = (kernel.launches, kernel.launches_bf16)
+    got = group_norm_act.group_norm_act(x, weight, bias, groups, GN_EPS, act)
+    assert kernel.launches == before[0] + 1
+    assert kernel.launches_bf16 == before[1] + (x.dtype == torch.bfloat16)
+    return got
+
+
+def _stats_gap(x, groups) -> tuple[float, float]:
+    """The largest relative gaps of the kernel's mean and rstd from float64
+    statistics, over the (sample, group) rows. The kernel's are read off
+    its output without an activation (weight 1, bias 0): the float64
+    least-squares line of that output over x has slope rstd and crosses
+    0 at the mean."""
+    n, c = x.shape[:2]
+    ones = torch.ones(c, device=x.device)
+    y = _norm_launch(x, ones, torch.zeros_like(ones), groups, "none")
+    xd = x.double().reshape(n, groups, -1)
+    yd = y.double().reshape(n, groups, -1)
+    xc = xd - xd.mean(-1, keepdim=True)
+    rstd = (xc * (yd - yd.mean(-1, keepdim=True))).sum(-1) / (
+        xc.square().sum(-1))
+    mean = xd.mean(-1) - yd.mean(-1) / rstd
+    want_mean = xd.mean(-1)
+    want_rstd = torch.rsqrt(xd.var(-1, unbiased=False) + GN_EPS)
+    return (float(((mean - want_mean).abs() / want_mean.abs()).max()),
+            float(((rstd - want_rstd).abs() / want_rstd).max()))
+
+
+@pytest.mark.parametrize("shape, groups, act", GRU_NORMS + [
+    ((3, 32, 64, 64, 80), 2, "sigmoid")])
+def test_group_norm_act_kernel_at_the_gru_shapes(dev, shape, groups, act):
+    """The GRU's two calls (and the gates of 3 targets at once, the
+    non-sequential fusion): within 4 float32 ulps of the output's scale
+    of the plain version (ATen's group norm and activation, whose float32
+    sums run in another order), the same output on a second run, and
+    mean and rstd within 1e-6 of float64 statistics."""
+    x, weight, bias = _norm_inputs(dev, shape)
+    got = _norm_launch(x, weight, bias, groups, act)
+    want = group_norm_act.group_norm_act_plain(x, weight, bias, groups,
+                                               GN_EPS, act)
+    gap = _gap_in_ulps_of_scale(got, want)
+    print(f"group_norm_act {shape} {act}: {gap} ulps of the scale")
+    assert gap <= 4, gap
+    assert torch.equal(got, _norm_launch(x, weight, bias, groups, act))
+    mean_gap, rstd_gap = _stats_gap(x, groups)
+    assert mean_gap <= 1e-6 and rstd_gap <= 1e-6, (mean_gap, rstd_gap)
+
+
+@pytest.mark.parametrize("act", ["sigmoid", "tanh", "none"])
+def test_group_norm_act_kernel_at_odd_misaligned_rows(dev, act):
+    """Rows of 315 values (3 channels of 5 x 7 x 3 a group), so that every
+    row after the first starts off a 16-byte boundary, on a tensor whose
+    own base is off one too: the scalar heads and tails."""
+    shape = (2, 9, 5, 7, 3)
+    _, weight, bias = _norm_inputs(dev, shape)
+    buf = 2.0 * torch.randn(math.prod(shape) + 1, device=dev) + 0.5
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16
+    got = _norm_launch(x, weight, bias, 3, act)
+    want = group_norm_act.group_norm_act_plain(x, weight, bias, 3, GN_EPS,
+                                               act)
+    assert _gap_in_ulps_of_scale(got, want) <= 4
+    mean_gap, rstd_gap = _stats_gap(x, 3)
+    assert mean_gap <= 1e-5 and rstd_gap <= 1e-6, (mean_gap, rstd_gap)
+
+
+@pytest.mark.parametrize("shape, groups, act", GRU_NORMS)
+def test_group_norm_act_bf16_instance_within_one_ulp(dev, shape, groups,
+                                                     act):
+    """bf16 volumes: float32 statistics and affine map, rounded to bf16,
+    the activation rounded once: within one bf16 ulp of the output's
+    scale of the plain version, and the same output on a second run."""
+    x, weight, bias = _norm_inputs(dev, shape, torch.bfloat16)
+    got = _norm_launch(x, weight, bias, groups, act)
+    want = group_norm_act.group_norm_act_plain(x, weight, bias, groups,
+                                               GN_EPS, act)
+    assert got.dtype == torch.bfloat16
+    assert _gap_in_ulps_of_scale(got, want) <= 1
+    assert torch.equal(got, _norm_launch(x, weight, bias, groups, act))
+
+
+def test_group_norm_act_kernel_refuses_what_it_cannot_take(dev):
+    x, weight, bias = _norm_inputs(dev, (1, 16, 4, 8, 8))
+    kernel = group_norm_act.KERNEL
+    before = kernel.launches
+    for args, error in [
+            ((x.half(), weight, bias, 1, "tanh"), TypeError),
+            ((x.transpose(2, 3), weight, bias, 1, "tanh"), ValueError),
+            ((x, weight, bias, 3, "tanh"), ValueError),
+            ((x, weight[:8], bias, 1, "tanh"), ValueError),
+            ((x, weight, bias.cpu(), 1, "tanh"), ValueError),
+            ((x, weight, bias, 1, "gelu"), ValueError)]:
+        with pytest.raises(error):
+            group_norm_act.group_norm_act(args[0], args[1], args[2],
+                                          args[3], GN_EPS, args[4])
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("path", ["stream", "joint", "train"])
+def test_gru_launches_group_norm_act_twice_a_grad_free_call(dev, path):
+    """At the small size, each GRU call of the stream and of the Joint
+    chain launches the kernel twice (the gates, the output norm), and a
+    training step's none: grad on keeps the modules."""
+    model = _small_model()
+    gru = model.CostRegNet.epipolar_transformer
+    calls = []
+    handle = gru.register_forward_hook(lambda *_: calls.append(1))
+    before = group_norm_act.KERNEL.launches
+    try:
+        if path == "stream":
+            assert len(_stream(model, _pitched_frames(5), dev)) == 3
+        elif path == "joint":
+            assert len(_joint_chain(model, _pitched_frames(8), dev, 2)) == 2
+        else:
+            losses, _ = _train_steps(model, _pitched_frames(5), dev,
+                                     TRAIN_WINDOWS[:1])
+            assert np.isfinite(losses).all()
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    assert calls
+    launched = group_norm_act.KERNEL.launches - before
+    assert launched == (0 if path == "train" else 2 * len(calls))

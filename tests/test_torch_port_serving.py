@@ -30,8 +30,8 @@ from estdepth_tpu_torch import serving
 from estdepth_tpu_torch.eval.estm import ESTMRunner
 from estdepth_tpu_torch.ops import warp
 from estdepth_tpu_torch.ops.cuda import (
-    epipolar_attention, library, plane_mix, plane_warp, two_pass,
-    view_correlation, view_variance,
+    epipolar_attention, group_norm_act, library, plane_mix, plane_warp,
+    two_pass, view_correlation, view_variance,
 )
 from estdepth_tpu_torch.ops.warp_exact_z import resample_exact_z, zi_field
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -157,8 +157,9 @@ def _op_cases():
     """(op, args, plain function) at the shapes of
     tests/test_torch_port_ops.py (12x16 maps, D = 8, C = 4), of the
     fusion's attention (3 neighbours, 16 channels, the K and V halves of
-    one warped volume read in place), of a variance over 3 views and of a
-    correlation of one swept view with the reference."""
+    one warped volume read in place), of a variance over 3 views, of a
+    correlation of one swept view with the reference and of the GRU's
+    gates' GroupNorm and sigmoid."""
     rng = np.random.default_rng(0)
     h, w, c, d = 12, 16, 4, 8
 
@@ -198,6 +199,9 @@ def _op_cases():
                           view_variance.view_variance_plain),
         "view_correlation": ((src, vol),
                              view_correlation.view_correlation_plain),
+        "group_norm_act": ((t(1, 32, d, h, w), 1.0 + 0.1 * t(32),
+                            0.1 * t(32), 2, 1e-5, "sigmoid"),
+                           group_norm_act.group_norm_act_plain),
     }
 
 
