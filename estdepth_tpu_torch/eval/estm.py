@@ -7,6 +7,12 @@ the depth of the window's centre frame. The first window of a scene runs
 without EST fusion, later windows with it (hybrid_depth_decoder.py:423).
 Matching features of the lwindow-1 frames shared with the previous window
 are carried over, so the matching encoder runs on the new frame only.
+
+Spans (utils/trace.py): `step` around `push_frame`; inside it
+`host_wait.upload` around the frame's, the pose's and the intrinsics'
+copies to the device (pageable host memory: on CUDA each copy waits for
+the device's queue to drain), the model's own and the output scales'
+`host_wait.constant` (eval/output.py).
 """
 
 from __future__ import annotations
@@ -125,8 +131,9 @@ class ESTMRunner:
         pose = torch.as_tensor(np.asarray(pose, np.float32))
         if pose.dim() == 2:
             pose = pose[None].expand(self.batch, 4, 4)
-        self._window_imgs.append(img.to(self.device).contiguous())
-        self._window_poses.append(pose.to(self.device).contiguous())
+        with trace.host_wait("upload"):
+            self._window_imgs.append(img.to(self.device).contiguous())
+            self._window_poses.append(pose.to(self.device).contiguous())
         if len(self._window_imgs) < self.lwindow:
             return None
         if self._intr is None:
@@ -134,7 +141,8 @@ class ESTMRunner:
             k = k[None] if k.dim() == 2 else k
             if k.shape[0] != self.batch:
                 k = k[:1].expand(self.batch, 3, 3)
-            self._intr = k.to(self.device).contiguous()
+            with trace.host_wait("upload"):
+                self._intr = k.to(self.device).contiguous()
         out = self._step(use_est=self._memory_filled)
         self._memory_filled = True
         # slide the window by one (eval_hybrid_seq.py:190)

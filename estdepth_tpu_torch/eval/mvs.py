@@ -8,6 +8,11 @@ CasMVSNet/test.py, TransMVSNet's test.py). A VGGT request is every frame
 of a scan: a depth map and a confidence for each frame, and each frame's
 camera; VGGT takes no cameras, so the poses and intrinsics are accepted
 and not read, and it resizes the frames itself, on the device.
+
+Spans (utils/trace.py): `step` around `run_view`; inside it
+`host_wait.upload` around the request's copies to the device (pageable
+host memory: on CUDA each waits for the device's queue to drain), and
+the model's own.
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ class MVSRunner:
         `return_all` the model's output dict (models/casmvsnet.py:
         MVSCascade.forward, models/vggt.py: VGGT.forward)."""
         dev = self.device
-        imgs = torch.as_tensor(imgs).to(dev)
-        cam_poses = torch.as_tensor(cam_poses).float().to(dev)
-        intr = torch.as_tensor(intr).float().to(dev)
+        with trace.host_wait("upload"):
+            imgs = torch.as_tensor(imgs).to(dev)
+            cam_poses = torch.as_tensor(cam_poses).float().to(dev)
+            intr = torch.as_tensor(intr).float().to(dev)
         out = self.model(imgs, cam_poses, intr)
         if self.return_all:
             return out

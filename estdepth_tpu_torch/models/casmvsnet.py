@@ -35,9 +35,11 @@ channels-last, [B, D, h, w, C], the sweep's layout; the variance op
 writes the U-Net's NCDHW. Float32 with TF32 off only
 (config.set_fp32_numerics).
 
-Counters (utils/trace.py): `mvs.targets` (reference depth maps),
-`mvs.feature_views` (views through the feature net) and `mvs.hypotheses`
-(D_k h_k w_k summed over the stages, per reference view).
+Counters (utils/trace.py): `mvs.targets` (reference depth maps) and
+`mvs.feature_views` (views through the feature net). Host waits: the
+first stage's depth range, two scalars made on the host, is copied
+inside `host_wait.constant`, and each stage's projections wait as
+ops/geometry.py says (`host_wait.inverse`, `host_wait.constant`).
 
 `MVSCascade` is the cascade that CasMVSNet and TransMVSNet
 (models/transmvsnet.py) share: the refusals, the counters, the feature
@@ -173,8 +175,9 @@ class MVSCascade(nn.Module):
         f32 = dict(dtype=torch.float32, device=device)
         steps = torch.arange(d, **f32)
         if prev is None:  # planes over the scan's range, the same a pixel
-            lo = torch.tensor(cfg.depth_min, **f32)
-            hi = torch.tensor(cfg.depth_max, **f32)
+            with trace.host_wait("constant"):
+                lo = torch.tensor(cfg.depth_min, **f32)
+                hi = torch.tensor(cfg.depth_max, **f32)
             planes = lo + steps * ((hi - lo) / (d - 1))
             return planes.view(1, d, 1, 1).expand(batch, d, *size)
         cur = F.interpolate(prev.detach()[:, None], size=(height, width),
@@ -229,7 +232,6 @@ class MVSCascade(nn.Module):
         depth, carry, out = None, None, {"stage_depths": []}
         for k, f in enumerate(feats):
             _, c, h, w = f.shape
-            trace.count("mvs.hypotheses", b * self.cfg.stage_planes[k] * h * w)
             with trace.span("mvs_cost_volume"):
                 k_s = scale_intrinsics(cam_intr, 1.0 / STAGE_SCALES[k])
                 proj = camera_projection(

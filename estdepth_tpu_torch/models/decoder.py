@@ -10,6 +10,10 @@ reference's upsample-logits-then-softargmin, since depth hypotheses are
 spatially constant). The EST fusion is sequential by default (the
 reference's order); `sequential_fusion=False` fuses all targets in one
 batched warp and one attention call.
+
+Spans (utils/trace.py): `est_fusion`, around either fusion; inside it
+`host_wait.inverse` for each target's pose inverse (ops/geometry.inverse),
+besides the frustum warp's own (ops/warp.py).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from estdepth_tpu_torch.models.layers import (
     Conv2d, Conv3d, conv_bn, upsample_nearest,
 )
 from estdepth_tpu_torch.models.memory import ESTMemory
+from estdepth_tpu_torch.ops.geometry import inverse
 from estdepth_tpu_torch.ops.warp import frustum_warp
 from estdepth_tpu_torch.utils import trace
 
@@ -155,7 +160,7 @@ class DepthHybridDecoder(nn.Module):
         idx_j = [j for i in range(num) for j in range(s) if j != i]
         p = len(idx_i)
         rel = torch.matmul(all_poses[:, idx_j],
-                           torch.linalg.inv(target_poses[:, idx_i]))
+                           inverse(target_poses[:, idx_i]))
         kv = torch.cat([all_keys[:, idx_j], all_vals[:, idx_j]], -1)
         warped = frustum_warp(
             kv.reshape(b * p, d, h, w, 2 * c), rel.reshape(b * p, 4, 4),
@@ -206,7 +211,7 @@ class DepthHybridDecoder(nn.Module):
             nn_ = len(nb_idx)
             rel = torch.matmul(
                 torch.stack([all_poses[:, j] for j in nb_idx], 1),
-                torch.linalg.inv(target_poses[:, i])[:, None],
+                inverse(target_poses[:, i])[:, None],
             )  # [B, NN, 4, 4]
             nb_k = torch.stack([keys_all[j] for j in nb_idx], 1)
             nb_v = torch.stack(

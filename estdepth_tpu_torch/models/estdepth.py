@@ -27,6 +27,15 @@ The module rests in eval mode (BatchNorm on its running statistics).
 `forward(..., train=True)` switches it to train mode for that call, as the
 JAX module's `train` argument does: BatchNorm normalizes with the batch's
 statistics and updates the running ones, and EST fusion runs by default.
+
+Spans (utils/trace.py): `cost_volume` (`_cost_volumes`: the projections,
+the plane sweep, the concat and `pre0`-`pre2`). Counters:
+`matching.frames` (frames through the matching encoder),
+`matching.plan_searches` (matching encoder calls with an encoder, input
+shape, dtype, device and train mode new to the process: the calls in
+which cuDNN times its plans, `measured_conv_plans`; on the CPU it counts
+the keys all the same) and `model.targets` (target depth maps a forward
+computes).
 """
 
 from __future__ import annotations

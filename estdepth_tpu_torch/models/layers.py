@@ -25,6 +25,12 @@ last) is one rank's shard: `Conv2d`/`Conv3d` and `MaxPool2d` widen it by
 halo columns of the neighbouring ranks and pad only the other axes, and
 `GroupNorm` takes its statistics over every rank's columns. Outside it
 they compute what they always did.
+
+Counters (utils/trace.py): `layers.bn_folded` (eval-mode, grad-free
+`conv_bn` blocks run as one convolution with the BatchNorm folded in)
+and `layers.bn_unfolded` (eval-mode, grad-free blocks that ran the
+BatchNorm as its own op: a bf16 input, torch.export tracing); training
+and grad-on calls count in neither.
 """
 
 from __future__ import annotations

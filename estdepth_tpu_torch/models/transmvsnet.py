@@ -45,10 +45,12 @@ The output is CasMVSNet's dict ("depth", "confidence", "index" and
 "stage_depths", the final stage's index its argmax) and "stage_indices",
 each stage's argmax [B, h, w] (int64). Float32 with TF32 off only.
 
-Counters (utils/trace.py): CasMVSNet's `mvs.targets`,
-`mvs.feature_views` and `mvs.hypotheses`, and `mvs.fmt_tokens`: tokens
-times the FMT layers they pass, h w (4 + 8 (V - 1)) a reference view
-(36 x 115,200 at 1152x1600 with 5 views).
+Counters (utils/trace.py): CasMVSNet's `mvs.targets` and
+`mvs.feature_views`, and `mvs.fmt_tokens`: tokens times the FMT layers
+they pass, h w (4 + 8 (V - 1)) a reference view (36 x 115,200 at
+1152x1600 with 5 views). Host waits: CasMVSNet's, and
+`host_wait.constant` around the copy of the position encoding's image
+size, made on the host.
 """
 
 from __future__ import annotations
@@ -147,7 +149,8 @@ class PositionEncoding(nn.Module):
     def forward(self, h: int, w: int, device) -> torch.Tensor:
         ones = torch.ones(h, w, device=device)
         xy = torch.stack([ones.cumsum(1), ones.cumsum(0)]).view(2, -1)
-        size = torch.tensor([w, h], dtype=torch.float32, device=device)
+        with trace.host_wait("constant"):
+            size = torch.tensor([w, h], dtype=torch.float32, device=device)
         xy = (xy - (size / 2)[:, None]) / (size.max() * 0.7)
         return self.kenc.encoder(xy[None])
 

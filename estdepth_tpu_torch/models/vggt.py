@@ -56,7 +56,8 @@ Returns {"depth", "confidence", "depth_logit", "confidence_logit"}
 `MVSRunner.run_view` are accepted and not read.
 
 Spans (utils/trace.py): `vggt_patch_embed`, `vggt_frame` and
-`vggt_global` (each block), `vggt_camera`, `vggt_depth_head`. Counters:
+`vggt_global` (each block), `vggt_camera`, `vggt_depth_head`; no host
+wait. Counters:
 `vggt.frames` (depth maps a forward computes, B S), `vggt.scans` (the
 scans it takes, B) and `vggt.global_tokens` (S P a scan: the tokens each
 global block attends over, once for each scan).

@@ -11,6 +11,11 @@ hash of the source, of every header in `csrc/` (`*.cuh`, which a source
 may include) and of the flags, so an edited source or header is rebuilt
 and a stale library is never loaded. `build_all()` starts one nvcc per source at once.
 Nothing is built when a module is imported.
+
+Spans (utils/trace.py): `<kernel>_backward`, the plain gradient of a
+kernel's sampled volume, run on autograd's thread. Counters:
+`launches.<stem>` and `launches_bf16.<stem>`, a kernel's launches (both
+instances, and the bfloat16 one).
 """
 
 from __future__ import annotations

@@ -9,11 +9,18 @@ Conventions:
 The JAX code pins these products to Precision.HIGHEST; here they are
 plain fp32 matmuls, which stay fp32 as long as TF32 is off for matmuls
 (config.set_fp32_numerics).
+
+Host waits (utils/trace.py): `host_wait.inverse` around every
+`torch.linalg.inv` of the port (`inverse`: on CUDA it checks each
+matrix's factorization on the host), `host_wait.constant` around the
+copy of `scale_intrinsics`' row scale, made on the host.
 """
 
 from __future__ import annotations
 
 import torch
+
+from estdepth_tpu_torch.utils import trace
 
 
 def pixel_grid(height: int, width: int, device=None,
@@ -36,16 +43,24 @@ def pixel_grid(height: int, width: int, device=None,
 
 def scale_intrinsics(cam_intr: torch.Tensor, scale: float) -> torch.Tensor:
     """Scale the first two rows of K (model_hybrid.py:104-108)."""
-    row_scale = torch.tensor([scale, scale, 1.0], dtype=cam_intr.dtype,
-                             device=cam_intr.device)
+    with trace.host_wait("constant"):
+        row_scale = torch.tensor([scale, scale, 1.0], dtype=cam_intr.dtype,
+                                 device=cam_intr.device)
     return cam_intr * row_scale[:, None]
+
+
+def inverse(mat: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.inv(mat)` of [..., n, n], inside
+    `host_wait("inverse")`."""
+    with trace.host_wait("inverse"):
+        return torch.linalg.inv(mat)
 
 
 def camera_projection(cam_intr: torch.Tensor,
                       cam_pose: torch.Tensor) -> torch.Tensor:
     """World->pixel projection [B, 4, 4]: rows [K @ E[:3, :4]; 0 0 0 1]
     with E = inverse(pose) (model_hybrid.py:85-88)."""
-    extr = torch.linalg.inv(cam_pose)
+    extr = inverse(cam_pose)
     top = torch.matmul(cam_intr, extr[:, :3, :4])
     return torch.cat([top, extr[:, 3:4, :4]], dim=1)
 
@@ -53,13 +68,13 @@ def camera_projection(cam_intr: torch.Tensor,
 def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor):
     """rot [B, 3, 3] and trans [B, 3] of src_proj @ inv(ref_proj)
     (homo_utils.py:469-471)."""
-    proj = torch.matmul(src_proj, torch.linalg.inv(ref_proj))
+    proj = torch.matmul(src_proj, inverse(ref_proj))
     return proj[:, :3, :3], proj[:, :3, 3]
 
 
 def backproject(cam_intr: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Unit-depth camera rays K^-1 @ grid: [B, 3, N] (homo_utils.py:40-62)."""
-    return torch.matmul(torch.linalg.inv(cam_intr), grid)
+    return torch.matmul(inverse(cam_intr), grid)
 
 
 def transform_points(mat4: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

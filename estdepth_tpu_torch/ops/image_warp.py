@@ -4,7 +4,8 @@ estdepth_tpu/ops/image_warp.py; reference utils/homo_utils.py:208-237,
 
 Not on the model's path: the geometry API's inverse_warp and warp_depth,
 channels-last [B, H, W, C] as in the JAX package, on ops/geometry.py and
-the hard-edged ops/sampling.bilinear_sample.
+the hard-edged ops/sampling.bilinear_sample. Each pose inverse runs
+inside `host_wait.inverse` (ops/geometry.inverse).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def inverse_warp(feat: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
     [B, 4, 4], source-to-target cam-to-world), project with cam_intr
     [B, 3, 3] and sample bilinearly. Returns [B, H, W, C]."""
     b, h, w = depth.shape
-    pts = geometry.transform_points(torch.linalg.inv(pose),
+    pts = geometry.transform_points(geometry.inverse(pose),
                                     _camera_points(depth, cam_intr))
     x, y, _ = geometry.project_points(cam_intr, pts)
     return bilinear_sample(feat, x, y).reshape(b, h, w, feat.shape[-1])
@@ -43,7 +44,7 @@ def warp_depth(depth: torch.Tensor, rel_pose: torch.Tensor,
     (homo_utils.py:282-302). Returns (warped depth [B, H, W], valid
     [B, H, W]: the projection lands inside the image)."""
     b, h, w = depth.shape
-    pts = geometry.transform_points(torch.linalg.inv(rel_pose),
+    pts = geometry.transform_points(geometry.inverse(rel_pose),
                                     _camera_points(depth, cam_intr))
     x, y, z = geometry.project_points(cam_intr, pts)
     valid = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)

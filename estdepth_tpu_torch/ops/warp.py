@@ -28,6 +28,10 @@ on the whole source grid) and have the kernels write those columns:
 coordinates [B, D, H, W_r] name an output window (ops/cuda/*.py), and
 the two-pass route's line coefficients are those of the rank's global
 columns.
+
+Host waits (utils/trace.py): `host_wait.inverse` at each pose and
+intrinsics inverse (ops/geometry.py), and the exact-z zi field's
+`host_wait.solve` (ops/warp_exact_z.py).
 """
 
 from __future__ import annotations
@@ -151,7 +155,7 @@ def frustum_coords(rel_pose: torch.Tensor, cam_intr: torch.Tensor,
                                columns=columns)
     rays = geometry.backproject(cam_intr, grid)  # [B, 3, HW]
     pts = rays[:, :, None, :] * depth_values[:, None, :, None]
-    t = torch.linalg.inv(rel_pose)
+    t = geometry.inverse(rel_pose)
     pts = geometry.transform_points(t, pts)
     x, y, z = geometry.project_points(cam_intr, pts.reshape(b, 3, -1))
     return t, grid, x, y, z

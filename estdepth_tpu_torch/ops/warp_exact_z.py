@@ -12,13 +12,20 @@ zi(c) (from `zi_field`):
 where ~ is the bilinear blend of the four corners. This is the plain
 version of the CUDA kernel in ops/cuda/plane_warp_exact_z.py, which
 computes the same per-voxel sum without materializing A and s.
+
+Host waits (utils/trace.py): `host_wait.inverse` (K^-1, through
+ops/geometry.inverse) and `host_wait.solve` (the planes' normals:
+`torch.linalg.solve` checks each system's factorization on the host) in
+`zi_field`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from estdepth_tpu_torch.ops import geometry
 from estdepth_tpu_torch.ops.sampling import bilinear_sample
+from estdepth_tpu_torch.utils import trace
 
 EPS = 1e-3  # z-window epsilon of the plane-mix family (ops/warp.py)
 
@@ -35,13 +42,14 @@ def zi_field(t: torch.Tensor, cam_intr: torch.Tensor,
     b, d = depth_values.shape
     rot = t[:, :3, :3]
     trans = t[:, :3, 3]
-    k_inv = torch.linalg.inv(cam_intr)
+    k_inv = geometry.inverse(cam_intr)
     m0 = torch.matmul(rot, k_inv)
     a = depth_values[:, :, None, None].float() * m0[:, None]
     a = torch.cat([a[..., :2], a[..., 2:] + trans[:, None, :, None]], -1)
     e3 = torch.zeros(b, d, 3, 1, dtype=a.dtype, device=a.device)
     e3[:, :, 2] = 1.0
-    n = torch.linalg.solve(a.transpose(-1, -2), e3)[..., 0]  # [B, D, 3]
+    with trace.host_wait("solve"):
+        n = torch.linalg.solve(a.transpose(-1, -2), e3)[..., 0]  # [B, D, 3]
     rays = torch.matmul(k_inv, grid)  # [B, 3, HW]
     denom = torch.matmul(n, rays)  # [B, D, HW]
     zi = (1.0 / denom - depth_min) / depth_interval

@@ -31,6 +31,10 @@ probability maps. A scene whose maps are already in --outdir is skipped.
 Data, weights (--ckpt), the warp flags and --bf16 as in
 tools/eval_estm.py; with --synthetic, one synthetic scene of --max-windows
 windows (3). Runs on the CUDA device unless --device cpu is given.
+
+Spans (utils/trace.py): `JointRunner.run_window` runs inside `step`, its
+copies of the window to the device inside `host_wait.upload` (pageable
+host memory: on CUDA each waits for the device's queue to drain).
 """
 
 from __future__ import annotations
@@ -87,9 +91,10 @@ class JointRunner:
         [B, 3, 3], numpy or tensors -> (depth [B, T, 4, H, W] on the
         device, probs [B, T, 2, H, W] (init, fused) or None)."""
         dev = self.device
-        imgs = torch.as_tensor(imgs).to(dev)
-        poses = torch.as_tensor(poses).float().to(dev)
-        intr = torch.as_tensor(intr).float().to(dev)
+        with trace.host_wait("upload"):
+            imgs = torch.as_tensor(imgs).to(dev)
+            poses = torch.as_tensor(poses).float().to(dev)
+            intr = torch.as_tensor(intr).float().to(dev)
         use_est = self.est_on and self.memory is not None
         outputs, (key, value, pose) = self.model(
             imgs, poses, intr, memory=self.memory if use_est else None,

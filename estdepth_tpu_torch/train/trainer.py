@@ -6,6 +6,9 @@ device or data-parallel over a mesh (parallel/mesh.py: DDP averages the
 gradients, one all-reduce the scalars, as the JAX step's pmeans). The warp
 kernels run in the forward; their gradients are the plain versions'
 (ops/cuda/build.sample_with_plain_grad).
+
+Spans (utils/trace.py): `step` around each training step; the batch is
+on the device already, so its host waits are the model's.
 """
 
 from __future__ import annotations

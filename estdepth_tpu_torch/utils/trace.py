@@ -8,44 +8,23 @@ costs one flag test when tracing is off. `spanned(name)` wraps every call
 of a function or method in `span(name)`; it is the decorator form, since a
 decorator is built at import, when no profiler records.
 
-Spans: `step` (ESTMRunner.push_frame, JointRunner.run_window,
-MVSRunner.run_view, a training step), `cost_volume`
-(DepthNetHybrid._cost_volumes), `est_fusion`
-(DepthHybridDecoder._est_fusion and _est_fusion_sequential),
-`<kernel>_backward` (ops/cuda/build.py: the plain gradient of a kernel's
-sampled volume, run on autograd's thread) and CasMVSNet's
-(models/casmvsnet.py): `mvs_features` (the feature net), and one a stage
-of `mvs_cost_volume` (hypotheses, sweeps and variance),
-`mvs_regularization` (the 3D U-Net) and `mvs_regression` (softmax,
-depth; the confidence in the last); VGGT's (models/vggt.py):
-`vggt_patch_embed` (DINOv2 on every frame), `vggt_frame` and
-`vggt_global` (each frame and global block), `vggt_camera` (the camera
-head) and `vggt_depth_head` (the DPT head). A span's name never equals a
+`host_wait(kind)` is `span("host_wait." + kind)`, opened around a call at
+which the host waits for the device to drain its queue: on CUDA a copy
+from pageable host memory, or a factorization that checks its result on
+the host. The range lies on the same clock as the device's activity, so a
+trace tells the host's waiting from its launching, and an idle gap that
+begins inside a wait is the wait's. `kind` names the call, not the line;
+the enclosing span says where it waits. A span's name never equals a
 custom op's (`estdepth::plane_sweep_sample` and the others), which the
 profiler records by itself.
 
 `count(name, n)` adds to one process-wide counter of plain ints, on the
 host (nothing here reads the device); `count_new(name, key)` adds 1 the
-first time the process gives `name` that key; `counts()` is a copy of it.
-Counters: `matching.frames` (frames through the matching encoder),
-`matching.plan_searches` (matching encoder calls with an encoder, input
-shape, dtype, device and train mode new to the process: the calls in
-which cuDNN times its plans, models/estdepth.measured_conv_plans; on the
-CPU it counts the keys all the same),
-`model.targets` (target depth maps a forward computes), `mvs.targets`,
-`mvs.feature_views` and `mvs.hypotheses` (CasMVSNet's reference depth
-maps, views through its feature net and D h w summed over its stages),
-`vggt.frames`, `vggt.scans` and `vggt.global_tokens` (VGGT's depth maps,
-scans, and the tokens each global block attends over, S P once a scan),
-`launches.<stem>`
-and `launches_bf16.<stem>` (a CUDA kernel's launches, both instances and
-the bfloat16 one; ops/cuda/build.Kernel), `layers.bn_folded` (eval-mode,
-grad-free `conv_bn` blocks run as one convolution with the BatchNorm
-folded in) and `layers.bn_unfolded` (eval-mode, grad-free blocks that ran
-the BatchNorm as its own op: a bf16 input, torch.export tracing;
-models/layers.ConvBN; training and grad-on calls count in neither). They
-count the eager model's calls: an exported program (serving.py) runs
-without them.
+first time the process gives `name` that key; `counts()` is a copy of
+them all. They count the eager model's calls: an exported program
+(serving.py) runs without them.
+
+Each module's docstring names the spans, waits and counters it opens.
 """
 
 from __future__ import annotations
@@ -84,6 +63,12 @@ def span(name: str):
     if _profiler._is_profiler_enabled:
         return _profiler.record_function(PREFIX + name)
     return OFF
+
+
+def host_wait(kind: str):
+    """`span("host_wait." + kind)`: around a call at which the host waits
+    on the device."""
+    return span("host_wait." + kind)
 
 
 def spanned(name: str):

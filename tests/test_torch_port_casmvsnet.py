@@ -275,9 +275,8 @@ def test_spans_and_counters(models, views):
     assert names.count("estdepth::view_variance") == 3
     after = trace.counts()
     grow = {k: after.get(k, 0) - before.get(k, 0)
-            for k in ("mvs.targets", "mvs.feature_views", "mvs.hypotheses")}
-    assert grow == {"mvs.targets": 1, "mvs.feature_views": 3,
-                    "mvs.hypotheses": 16 * 16 * 24 + 8 * 32 * 48 + 8 * H * W}
+            for k in ("mvs.targets", "mvs.feature_views")}
+    assert grow == {"mvs.targets": 1, "mvs.feature_views": 3}
 
 
 def test_config_refuses_what_the_model_does_not_compute():

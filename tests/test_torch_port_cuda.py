@@ -43,6 +43,9 @@ second run; each grad-free GRU call of the stream and the Joint chain
 launches it twice, a training step never.
 The PSM matching encoder, under its measured cuDNN plans, stays float32
 (no TF32 kernel) and within 1e-4 of its scale of the CPU's features.
+Under `torch.cuda.set_sync_debug_mode("warn")` a steady request of each
+runner (stream, Joint, training, CasMVSNet, TransMVSNet, VGGT) syncs the
+host with the card only inside `utils/trace.host_wait` spans.
 
 The paths at the small size (64x96, D = 8, ResNet-18): the ESTM stream,
 the Joint chain in both frustum modes, the training step through the
@@ -65,6 +68,7 @@ Without JAX on the card's machine, run with `--noconftest`.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -1751,3 +1755,127 @@ def test_gru_launches_group_norm_act_twice_a_grad_free_call(dev, path):
     assert calls
     launched = group_norm_act.KERNEL.launches - before
     assert launched == (0 if path == "train" else 2 * len(calls))
+
+
+def _mvs_request(dev, views: int, height: int, width: int):
+    """A request of `views` frames of a synthetic scan (the benchmark's
+    camera path, DTU's field of view), as numpy arrays."""
+    from portbench.harness.scenes import Path, make_scenes
+
+    path = Path(height=height, width=width, frames=views, step_x=0.03,
+                step_z=-0.0045, yaw_per_frame=0.002,
+                plane_offset=(0.6, 0.75), focal=2892.33 * width / 1600)
+    scene = make_scenes(path, 1, 5, dev)[0]
+    return scene.frames[None], scene.poses[None], scene.intr[None]
+
+
+def _steady_request(path: str, dev):
+    """(warm-up, request) of one runner at the small size: the request is
+    a steady one (a stream frame, a Joint window and a training step with
+    EST on a memory, an MVS request after the first), its inputs as the
+    benchmark hands them over (numpy frames; a training batch already on
+    the device)."""
+    from estdepth_tpu_torch.config import CascadeConfig
+    from estdepth_tpu_torch.eval.mvs import MVSRunner
+
+    if path == "stream":
+        from estdepth_tpu_torch.eval.estm import ESTMRunner
+
+        frames = _pitched_frames(5)
+        runner = ESTMRunner(_small_model(), 64, 96, output_scales=(0, 2),
+                            device=dev)
+        return (lambda: [runner.push_frame(f["img"], f["cam_pose"],
+                                           f["cam_intr"])
+                         for f in frames[:4]],
+                lambda: runner.push_frame(frames[4]["img"],
+                                          frames[4]["cam_pose"],
+                                          frames[4]["cam_intr"]))
+    if path == "joint":
+        from estdepth_tpu_torch.tools.eval_joint import JointRunner
+
+        windows = _joint_windows(_pitched_frames(8), 2)
+        runner = JointRunner(_small_model(), device=dev)
+        return (lambda: runner.run_window(*windows[0]),
+                lambda: runner.run_window(*windows[1]))
+    if path == "train":
+        from estdepth_tpu_torch.train.trainer import (
+            make_optimizer, make_train_step,
+        )
+
+        frames = _pitched_frames(5)
+        model = _small_model().to(dev)
+        optimizer, scheduler = make_optimizer(model.named_parameters(),
+                                              lambda step: 4e-5)
+        step = make_train_step(model, optimizer, scheduler, 0.5, 8.0)
+        arrays = {
+            "imgs": np.stack([f["img"] for f in frames])[None],
+            "cam_poses": np.stack([f["cam_pose"] for f in frames])[None],
+            "cam_intr": frames[0]["cam_intr"][None],
+            "dmaps": np.stack([f["dmap"] for f in frames[1:4]])[None],
+            "dmasks": np.stack([f["dmask"] for f in frames[1:4]])[None]}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in arrays.items()}
+        return (lambda: step(batch, 10.0), lambda: step(batch, 10.0))
+    if path == "vggt":
+        model, _ = _vggt_middle(dev)
+        views = _mvs_request(dev, 4, 1152, 1600)
+    else:
+        from estdepth_tpu_torch.models.casmvsnet import CascadeMVSNet
+        from estdepth_tpu_torch.models.transmvsnet import TransMVSNet
+
+        net = CascadeMVSNet if path == "casmvsnet" else TransMVSNet
+        model = net(CascadeConfig(stage_planes=(8, 8, 8)), seed=3)
+        views = _mvs_request(dev, 5, 64, 96)
+    runner = MVSRunner(model, device=dev)
+    return (lambda: runner.run_view(*views),
+            lambda: runner.run_view(*views))
+
+
+@pytest.mark.parametrize("path", ["stream", "joint", "train", "casmvsnet",
+                                  "transmvsnet", "vggt"])
+def test_a_steady_request_syncs_only_inside_host_waits(dev, path,
+                                                        monkeypatch):
+    """Under `torch.cuda.set_sync_debug_mode("warn")` every call of a
+    steady request at which the host waits on the card lies inside a
+    `utils/trace.host_wait` span: each sync warning is raised while one is
+    open. Each request syncs at least once (its upload, a pose inverse)."""
+    import traceback
+    import warnings
+
+    from estdepth_tpu_torch.utils import trace
+
+    torch.backends.cudnn.allow_tf32 = False
+    warm, request = _steady_request(path, dev)
+    warm()
+    torch.cuda.synchronize()
+    depth = [0]
+    real = trace.host_wait
+
+    @contextlib.contextmanager
+    def counted(kind):
+        depth[0] += 1
+        try:
+            with real(kind):
+                yield
+        finally:
+            depth[0] -= 1
+
+    monkeypatch.setattr(trace, "host_wait", counted)
+    syncs = []
+
+    def show(message, *args, **kwargs):
+        if "synchronizing" in str(message):
+            syncs.append((depth[0] > 0,
+                          "".join(traceback.format_stack(limit=8)[:-1])))
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            request()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    outside = [stack for inside, stack in syncs if not inside]
+    assert syncs
+    assert not outside, outside[0]

@@ -1,20 +1,25 @@
 """The port's spans and counters (estdepth_tpu_torch/utils/trace.py) on the
 CPU, at the tiny configuration (ndepths 8, 64x96, ResNet-18).
 
-With no profiler a span is the shared no-op and no profiler range opens.
-Under torch.profiler one runner request or training step opens one
-`estdepth::step`, with the cost volume and EST fusion inside it where they
-run. The counters count the matching encoder's frames, the forward's
-targets and its folded conv_bn blocks, and the encoder calls at a new
-shape; the kernels' launch counts read the same registry, and the serving
-export traces no profiler op into its programs. The matching encoder runs with cuDNN's measured plan choice
-on and every other flag as its caller set it, also when it raises.
+With no profiler a span, and a host wait, is the shared no-op and no
+profiler range opens. Under torch.profiler one runner request or training
+step opens one `estdepth::step`, with the cost volume and EST fusion
+inside it where they run, and each call at which the host waits on the
+device (on CUDA) inside an `estdepth::host_wait.<kind>` range within the
+step; the outputs are the same, bit for bit, with the profiler on. The
+counters count the matching encoder's frames, the forward's targets and
+its folded conv_bn blocks, and the encoder calls at a new shape; the
+kernels' launch counts read the same registry, and the serving export
+traces no profiler op into its programs. The matching encoder runs with
+cuDNN's measured plan choice on and every other flag as its caller set
+it, also when it raises.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import sys
 import threading
 
@@ -22,12 +27,14 @@ import pytest
 import torch
 
 from estdepth_tpu_torch import serving
-from estdepth_tpu_torch.config import ModelConfig
+from estdepth_tpu_torch.config import CascadeConfig, ModelConfig
 from estdepth_tpu_torch.data.synthetic import (
     SyntheticSceneConfig, synthetic_stream, synthetic_window,
 )
 from estdepth_tpu_torch.eval.estm import ESTMRunner
+from estdepth_tpu_torch.eval.mvs import MVSRunner
 from estdepth_tpu_torch.models import estdepth, layers
+from estdepth_tpu_torch.models.casmvsnet import CascadeMVSNet
 from estdepth_tpu_torch.models.estdepth import DepthNetHybrid
 from estdepth_tpu_torch.ops.cuda import plane_warp
 from estdepth_tpu_torch.tools.eval_joint import JointRunner
@@ -55,10 +62,10 @@ def frames():
                                  depth_max=DMAX))
 
 
-def _stream_runner(model, frames):
+def _stream_runner(model, frames, **options):
     """An ESTMRunner past its first window and one EST frame, and the
     frame that comes next: a steady frame, EST on."""
-    runner = ESTMRunner(model, H, W, device="cpu")
+    runner = ESTMRunner(model, H, W, device="cpu", **options)
     for f in frames[:4]:
         runner.push_frame(f["img"], f["cam_pose"], f["cam_intr"])
     return runner, frames[4]
@@ -111,6 +118,107 @@ def test_span_without_a_profiler_is_the_shared_no_op(model, frames,
                              frame["cam_intr"]) is not None
     scalars = _train_step(model)(_window(3), clip_norm=10.0)
     assert torch.isfinite(scalars["loss"])
+
+
+def test_host_wait_without_a_profiler_is_the_shared_no_op():
+    assert trace.host_wait("upload") is trace.OFF
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.host_wait("upload") as opened:
+            assert opened is not None
+    assert [e.name for e in prof.events()] == ["estdepth::host_wait.upload"]
+
+
+def _mvs_view():
+    """A CasMVSNet request at the tiny size: 3 views at 64x96, 16/8/8
+    planes, from a synthetic scan."""
+    from portbench.harness.scenes import Path, make_scenes
+
+    path = Path(height=H, width=W, frames=3, step_x=0.03, step_z=-0.0045,
+                yaw_per_frame=0.002, plane_offset=(0.6, 0.75),
+                focal=2892.33 * W / 1600)
+    scene = make_scenes(path, 1, 5, torch.device("cpu"))[0]
+    return (torch.from_numpy(scene.frames)[None],
+            torch.from_numpy(scene.poses)[None],
+            torch.from_numpy(scene.intr)[None])
+
+
+def _request(case, model, frames):
+    """(set-up, request) of one runner's steady request on fresh state:
+    set-up runs what comes before it, the request returns its outputs."""
+    if case == "stream":  # a steady frame, the benchmark's two scales
+        def setup():
+            return _stream_runner(model, frames, output_scales=(0, 2))
+
+        return setup, lambda s: (s[0].push_frame(
+            s[1]["img"], s[1]["cam_pose"], s[1]["cam_intr"]),)
+    if case == "joint":  # the second window, EST on the first's memory
+        w = _window()
+        args = (w["imgs"], w["cam_poses"], w["cam_intr"])
+
+        def setup():
+            runner = JointRunner(model, device="cpu")
+            runner.run_window(*args)
+            return runner
+
+        return setup, lambda runner: runner.run_window(*args)[:1]
+    if case == "casmvsnet":
+        net, views = CascadeMVSNet(CascadeConfig(stage_planes=(16, 8, 8)),
+                                   seed=3), _mvs_view()
+        return (lambda: MVSRunner(net, device="cpu"),
+                lambda runner: runner.run_view(*views))
+    batch = _window()  # a training step: three targets, EST on
+
+    def setup():
+        copied = copy.deepcopy(model)
+        return copied, _train_step(copied)
+
+    def train(s):
+        scalars = s[1](batch, clip_norm=10.0)
+        return (scalars["loss"], *s[0].parameters())
+
+    return setup, train
+
+
+# host_wait ranges of one steady request, by kind
+HOST_WAITS = {
+    # the frame and pose (one range); the projections, the fusion's pose
+    # inverse, the frustum warp's pose and K^-1 and the zi field's K^-1;
+    # the zi field's normals; the intrinsics' scale and the scales' index
+    "stream": {"upload": 1, "inverse": 6, "solve": 1, "constant": 2},
+    # the window; 2 projections and 4 inverses for each of 3 targets
+    "joint": {"upload": 1, "inverse": 14, "solve": 3, "constant": 1},
+    # the request; a projection a stage and one for each of 2 sources a
+    # stage; each stage's intrinsics and stage 1's depth range
+    "casmvsnet": {"upload": 1, "inverse": 9, "constant": 4},
+    "train": {"inverse": 14, "solve": 3, "constant": 1},
+}
+
+
+@pytest.mark.parametrize("case", list(HOST_WAITS))
+def test_host_waits_of_a_request_lie_inside_its_step(model, frames, case):
+    setup, request = _request(case, model, frames)
+    state = setup()
+    spans = _profiled(lambda: request(state))
+    (step,) = spans["estdepth::step"]
+    prefix = "estdepth::host_wait."
+    waits = {name[len(prefix):]: len(spans[name]) for name in spans
+             if name.startswith(prefix)}
+    assert waits == HOST_WAITS[case]
+    assert all(_inside(s, step) for name in spans if name.startswith(prefix)
+               for s in spans[name])
+
+
+@pytest.mark.parametrize("case", list(HOST_WAITS))
+def test_outputs_are_the_same_with_the_profiler_on(model, frames, case):
+    setup, request = _request(case, model, frames)
+    plain = request(setup())
+    state = setup()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = request(state)
+    assert len(plain) == len(traced)
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
 
 
 def test_a_stream_frame_opens_one_step_with_cost_volume_and_est_fusion(
